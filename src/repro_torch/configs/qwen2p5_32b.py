@@ -1,0 +1,20 @@
+"""qwen2.5-32b — dense GQA with QKV bias.
+
+64L d_model=5120 40H (GQA kv=8) d_ff=27648 vocab=152064. [hf:Qwen/Qwen2.5 family]
+"""
+from repro_torch.configs.base import ArchConfig, Family, register
+
+QWEN2P5_32B = register(ArchConfig(
+    name="qwen2.5-32b",
+    family=Family.DENSE,
+    n_layers=64,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_ff=27648,
+    vocab=152064,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=1e6,
+    source="hf:Qwen/Qwen2.5-0.5B (hf; scaled per assignment)",
+))

@@ -1,0 +1,111 @@
+"""Paged decode attention (kernel B1): the CUDA kernel's wrapper and its
+plain PyTorch version, which mirrors the reference oracle
+``repro.kernels.decode_attention.ref.paged_decode_ref`` (gather the pages,
+then one masked softmax per GQA group in fp32).
+
+A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
+in ``csrc/paged_decode.cu`` or raises."""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+_DTYPES = (torch.float32, torch.bfloat16)
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_MAX_GROUP = 8
+
+
+def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, block_table: torch.Tensor,
+                     lengths: torch.Tensor,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Hq, D); k/v_pages: (n_pages, page, Hkv, D); block_table:
+    (B, max_pages) int; lengths: (B,) int -> (B, Hq, D) in q's type."""
+    b, hq, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    max_pages = block_table.shape[1]
+    s = max_pages * page
+    bt = block_table.long()
+    k = k_pages[bt].reshape(b, s, hkv, d)
+    v = v_pages[bt].reshape(b, s, hkv, d)
+    scale = scale if scale is not None else d ** -0.5
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, d)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
+    valid = torch.arange(s, device=q.device)[None, :] \
+        < lengths.to(q.device)[:, None]
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    l_run = p.sum(dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
+    out = o / torch.clamp_min(l_run, 1e-37)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_table: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """See paged_decode_ref. On CUDA, block_table and lengths are int32."""
+    if q.device.type == "cpu":
+        return paged_decode_ref(q, k_pages, v_pages, block_table, lengths,
+                                scale)
+    if q.device.type != "cuda":
+        raise ValueError("paged_decode_attention: unsupported device "
+                         f"{q.device}")
+    if q.dim() != 3 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"paged_decode_attention: shapes {tuple(q.shape)}, "
+                         f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    b, hq, d = q.shape
+    _, page, hkv, dk = k_pages.shape
+    if dk != d or hkv == 0 or hq % hkv:
+        raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} and "
+                         f"pages {tuple(k_pages.shape)} do not form GQA "
+                         "heads")
+    if d not in (64, 128):
+        raise ValueError(f"paged_decode_attention: head dim {d} not in "
+                         "(64, 128)")
+    if hq // hkv > _MAX_GROUP:
+        raise ValueError(f"paged_decode_attention: {hq // hkv} query heads "
+                         f"per kv head; the kernel takes up to {_MAX_GROUP}")
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"paged_decode_attention: dtypes {q.dtype}/"
+                        f"{k_pages.dtype}/{v_pages.dtype}; one of {_DTYPES} "
+                        "expected")
+    if block_table.dtype != torch.int32 or lengths.dtype != torch.int32 \
+            or block_table.dim() != 2 or block_table.shape[0] != b \
+            or lengths.shape != (b,):
+        raise ValueError("paged_decode_attention: block_table (B, max_pages) "
+                         "and lengths (B,) must be int32")
+    if not all(t.device == q.device and t.is_contiguous()
+               for t in (q, k_pages, v_pages, block_table, lengths)):
+        raise ValueError("paged_decode_attention: inputs must be contiguous "
+                         "on one device")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("paged_decode_attention: q and the pools must be "
+                         "16-byte aligned (vector loads of whole rows)")
+    out = torch.empty_like(q)
+    fn = _build.function("paged_decode_launch", _ARGTYPES)
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             out.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
+             b, hq, hkv, d, page, block_table.shape[1],
+             float(scale if scale is not None else d ** -0.5),
+             int(q.dtype == torch.bfloat16),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+__all__ = ["paged_decode_attention", "paged_decode_ref"]

@@ -1,0 +1,167 @@
+"""GQA flash attention (kernel B2): the CUDA kernel's wrapper and its plain
+PyTorch versions.
+
+``flash_attention_ref`` mirrors the reference's memory-bounded chunked
+oracle (``repro.kernels.flash_attention.ref``): KV chunks of ``kv_chunk``
+with an fp32 running softmax, and ``p`` cast to ``v``'s type before
+``p @ v``, so bf16 rounding matches the JAX prefill path. A CPU tensor goes
+to it; a CUDA tensor goes to the kernel in ``csrc/flash_attention.cu`` or
+raises."""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+_DTYPES = (torch.float32, torch.bfloat16)
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, Hkv*n_rep, D)."""
+    if n_rep == 1:
+        return x
+    b, s, h, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, h, n_rep, d) \
+        .reshape(b, s, h * n_rep, d)
+
+
+def attention_dense_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        kv_len: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """O(Sq*Skv)-memory reference. q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv,
+    D); q_offset: global position of q[0]; kv_len: optional (B,) lengths."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    k = _repeat_kv(k, hq // hkv)
+    v = _repeat_kv(v, hq // hkv)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = torch.ones((b, 1, sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        mask &= (qpos >= kpos)[None, None]
+    if kv_len is not None:
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        mask &= (kpos < kv_len.to(q.device)[:, None])[:, None, None, :]
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+def _flash_chunked(q, k, v, q_offset, kv_len, scale, causal, kv_chunk):
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    n_rep = hq // hkv
+    dev = q.device
+    qpos = torch.arange(sq, device=dev)[:, None] + q_offset
+    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l_run = torch.zeros((b, hq, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=dev)
+    qf = q.float()
+    for k0 in range(0, skv, kv_chunk):
+        kc = _repeat_kv(k[:, k0:k0 + kv_chunk], n_rep)
+        vc = _repeat_kv(v[:, k0:k0 + kv_chunk], n_rep)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kc.float()) * scale
+        kpos = k0 + torch.arange(kv_chunk, device=dev)[None, :]
+        mask = torch.ones((b, 1, sq, kv_chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= (qpos >= kpos)[None, None]
+        if kv_len is not None:
+            mask &= (kpos[None] < kv_len.to(dev)[:, None, None])[:, None]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l_run = l_run * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(vc.dtype).float(),
+                          vc.float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l_run, 1e-37)[..., None]
+    return out.transpose(1, 2).to(q.dtype)       # (B, Sq, Hq, D)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        kv_len: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None,
+                        kv_chunk: int = 256) -> torch.Tensor:
+    """Memory-bounded flash attention (chunked over KV). Falls back to the
+    dense form when Skv is not a multiple of the chunk, as the reference
+    does."""
+    skv = k.shape[1]
+    kv_chunk = min(kv_chunk, skv)
+    if skv % kv_chunk:
+        return attention_dense_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                   kv_len=kv_len, scale=scale)
+    d = q.shape[-1]
+    return _flash_chunked(q, k, v, int(q_offset), kv_len,
+                          scale if scale is not None else d ** -0.5,
+                          causal, kv_chunk)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    kv_len: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None,
+                    kv_chunk: int = 256) -> torch.Tensor:
+    """Causal (or not) GQA attention. q: (B, Sq, Hq, D); k, v: (B, Skv,
+    Hkv, D) -> (B, Sq, Hq, D). ``kv_chunk`` shapes only the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                   kv_len=kv_len, scale=scale,
+                                   kv_chunk=kv_chunk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    _, skv, hkv, dk = k.shape
+    if k.shape[0] != b or dk != d or hkv == 0 or hq % hkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not form GQA heads")
+    if d not in (64, 128):
+        raise ValueError(f"flash_attention: head dim {d} not in (64, 128)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}; one of {_DTYPES} expected")
+    if not all(t.device == q.device and t.is_contiguous()
+               for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must be contiguous on "
+                         "one device")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
+                         "(whole-row vector loads)")
+    if kv_len is not None and (kv_len.dtype != torch.int32
+                               or kv_len.shape != (b,)
+                               or kv_len.device != q.device
+                               or not kv_len.is_contiguous()):
+        raise ValueError("flash_attention: kv_len must be a contiguous "
+                         "(B,) int32 tensor on q's device")
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    out = torch.empty_like(q)
+    fn = _build.function("flash_attention_launch", _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             None if kv_len is None else kv_len.data_ptr(),
+             b, sq, skv, hq, hkv, d, q_offset, int(causal),
+             float(scale if scale is not None else d ** -0.5),
+             int(q.dtype == torch.bfloat16),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+__all__ = ["flash_attention", "flash_attention_ref", "attention_dense_ref"]

@@ -1,0 +1,3 @@
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_ref
+
+__all__ = ["rmsnorm", "rmsnorm_ref"]

@@ -1,0 +1,341 @@
+"""Per-worker continuous-batching engine with a paged KV cache (vLLM-style),
+ported from the reference ``repro.serving.engine``.
+
+Slot-based execution over a page pool: each running request owns a slot and
+a list of pages (block table); page 0 is the null page that unused
+block-table entries point at. Iteration-level scheduling (Orca-style): new
+requests run a prefill iteration (preempting decode, as vLLM does — the
+paper's constraint (d) budgets exactly this), otherwise all running slots
+advance one decode step via paged attention.
+
+Precision follows the reference: prefill runs in the parameter dtype (bf16
+for the paper's models), decode and the chunked prefill in fp32 — the
+reference's jnp promotion of bf16 weights against fp32 activations is an
+explicit ``.float()`` here. The KV pool is fp32.
+
+On a CUDA device every prefill and decode iteration goes through the port's
+kernels (B1 paged decode, B2 flash attention, B3 RMSNorm); on the CPU
+through their plain versions. CUDA launches are asynchronous, so every
+clock read that feeds the TraceBuffer follows a host read of the
+iteration's result (``.item()`` / ``.cpu()``), which waits for the device:
+iteration wall-times, not launch latencies, fit the paper's Eqs. 1-3. The
+clock is read at the same places and as often as in the reference."""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, Family, PosEmb
+from repro_torch.core.perf_model import TraceBuffer
+from repro_torch.core.request import ReqState, Request
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.common import gated_mlp, rms_norm, rope, \
+    sinusoidal_pos
+from repro_torch.models.model import LM
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    max_batch: int = 8
+    page_size: int = 16
+    n_pages: int = 512
+    max_pages_per_seq: int = 64
+    max_new_tokens: int = 2048
+    prefill_chunk: int = 0          # >0: Sarathi-style chunked prefill — at
+                                    # most this many prompt tokens per
+                                    # iteration, bounding decode preemption
+                                    # stalls (shrinks constraint (d) pressure)
+
+
+def _f32_layer(seg, i: int) -> dict:
+    """Layer i of the stacked params, promoted to fp32 (decode precision)."""
+    return {k: t[i].float() for k, t in seg.items()}
+
+
+class PagedEngine:
+    """One worker's execution engine."""
+
+    def __init__(self, arch: ArchConfig, params, cfg: EngineConfig,
+                 time_fn: Callable[[], float] = time.perf_counter,
+                 device: DeviceLike = None):
+        if arch.family not in (Family.DENSE, Family.AUDIO):
+            raise ValueError("engine path supports dense GQA archs (the "
+                             "paper's models)")
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"engine on {self.device}")
+        self.arch = arch
+        self.params = params
+        self.cfg = cfg
+        self.time_fn = time_fn
+        self.traces = TraceBuffer()
+        self.model = LM(arch, device=self.device)
+        L = arch.n_layers
+        hd = arch.resolved_head_dim
+        self.kv_k = torch.zeros((L, cfg.n_pages, cfg.page_size,
+                                 arch.n_kv_heads, hd), dtype=torch.float32,
+                                device=self.device)
+        self.kv_v = torch.zeros_like(self.kv_k)
+        self.block_tables = np.zeros((cfg.max_batch, cfg.max_pages_per_seq),
+                                     np.int32)
+        self.lengths = np.zeros((cfg.max_batch,), np.int32)
+        self.free_pages = list(range(cfg.n_pages - 1, 0, -1))  # page 0 = null
+        self.slots: List[Optional[Request]] = [None] * cfg.max_batch
+        self.waiting: List[Request] = []
+        self.kv_bytes_per_token = 2 * L * arch.n_kv_heads * hd * 4
+
+    # ---- admission / state --------------------------------------------------
+    def can_admit(self, n_tokens_total: int) -> bool:
+        pages_needed = n_tokens_total // self.cfg.page_size + 2
+        return (any(s is None for s in self.slots)
+                and len(self.free_pages) >= pages_needed)
+
+    def submit(self, req: Request) -> None:
+        self.waiting.append(req)
+
+    @property
+    def running(self) -> List[Request]:
+        return [r for r in self.slots if r is not None]
+
+    def kv_used_bytes(self) -> float:
+        return float(self.lengths.sum()) * self.kv_bytes_per_token / 2
+
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    # ---- model math ---------------------------------------------------------
+    def _decode(self, tokens: np.ndarray, active_slots: List[int]):
+        """One decode iteration for every slot; the KV of the active slots
+        is written in place. Returns logits (max_batch, V) in fp32."""
+        a = self.arch
+        hd = a.resolved_head_dim
+        params = self.params
+        bt = self._tensor(self.block_tables)
+        lengths = self._tensor(self.lengths)
+        act = self._tensor(active_slots, torch.long)
+        x = params["embed"][self._tensor(tokens)].float()
+        if a.tie_embeddings:
+            x = x * math.sqrt(a.d_model)
+        if a.pos_emb == PosEmb.SINUSOIDAL:
+            x = x + sinusoidal_pos(lengths, a.d_model)
+        pos = lengths[act].long()
+        page_ids = bt[act, pos // self.cfg.page_size].long()
+        offs = (pos % self.cfg.page_size).long()
+        seq_lens = lengths + 1
+        for i in range(a.n_layers):
+            p = _f32_layer(params["seg0"], i)
+            h = rms_norm(x, p["ln1"], a.norm_eps)
+            q = (h @ p["wq"]).reshape(-1, a.n_heads, hd)
+            k = (h @ p["wk"]).reshape(-1, a.n_kv_heads, hd)
+            v = (h @ p["wv"]).reshape(-1, a.n_kv_heads, hd)
+            if a.qkv_bias:
+                q = q + p["bq"].reshape(a.n_heads, hd)
+                k = k + p["bk"].reshape(a.n_kv_heads, hd)
+                v = v + p["bv"].reshape(a.n_kv_heads, hd)
+            if a.pos_emb == PosEmb.ROPE:
+                q = rope(q[:, None], lengths[:, None], a.rope_theta)[:, 0]
+                k = rope(k[:, None], lengths[:, None], a.rope_theta)[:, 0]
+            self.kv_k[i, page_ids, offs] = k[act]
+            self.kv_v[i, page_ids, offs] = v[act]
+            att = paged_decode_attention(q.contiguous(), self.kv_k[i],
+                                         self.kv_v[i], bt, seq_lens)
+            x = x + att.reshape(x.shape[0], -1) @ p["wo"]
+            h = rms_norm(x, p["ln2"], a.norm_eps)
+            x = x + gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act)
+        x = rms_norm(x, params["final_ln"], a.norm_eps)
+        return x @ self.model.head_weight(params).float()
+
+    def _chunk(self, chunk_toks: List[int], k_ctx, v_ctx, ctx_len: int,
+               logit_pos: int):
+        """One chunked-prefill step in fp32: chunk tokens attend to the
+        context KV (q_offset = ctx_len) and causally within the chunk,
+        through kernel B2 with its runtime q_offset and kv_len.
+        Returns (logits at logit_pos, chunk ks, vs: (L, C, Hkv, hd))."""
+        a = self.arch
+        hd = a.resolved_head_dim
+        params = self.params
+        x = params["embed"][self._tensor(chunk_toks, torch.long)].float()
+        x = x[None]                                           # (1, C, D)
+        if a.tie_embeddings:
+            x = x * math.sqrt(a.d_model)
+        c = x.shape[1]
+        positions = ctx_len + torch.arange(c, device=self.device)
+        kv_len = torch.full((1,), ctx_len + c, dtype=torch.int32,
+                            device=self.device)
+        ks_out, vs_out = [], []
+        for i in range(a.n_layers):
+            p = _f32_layer(params["seg0"], i)
+            h = rms_norm(x, p["ln1"], a.norm_eps)
+            q = (h @ p["wq"]).reshape(1, c, a.n_heads, hd)
+            k = (h @ p["wk"]).reshape(1, c, a.n_kv_heads, hd)
+            v = (h @ p["wv"]).reshape(1, c, a.n_kv_heads, hd)
+            if a.qkv_bias:
+                q = q + p["bq"].reshape(a.n_heads, hd)
+                k = k + p["bk"].reshape(a.n_kv_heads, hd)
+                v = v + p["bv"].reshape(a.n_kv_heads, hd)
+            if a.pos_emb == PosEmb.ROPE:
+                q = rope(q, positions, a.rope_theta)
+                k = rope(k, positions, a.rope_theta)
+            ks_out.append(k[0])
+            vs_out.append(v[0])
+            k_all = torch.cat([k_ctx[i][None], k], dim=1)
+            v_all = torch.cat([v_ctx[i][None], v], dim=1)
+            att = flash_attention(q.contiguous(), k_all, v_all, causal=True,
+                                  q_offset=ctx_len, kv_len=kv_len)
+            x = x + att.reshape(1, c, -1) @ p["wo"]
+            h = rms_norm(x, p["ln2"], a.norm_eps)
+            x = x + gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act)
+        x = rms_norm(x, params["final_ln"], a.norm_eps)
+        logits = x[0, logit_pos] @ self.model.head_weight(params).float()
+        return logits, torch.stack(ks_out), torch.stack(vs_out)
+
+    # ---- page management ----------------------------------------------------
+    def _alloc_slot(self, req: Request, n_tokens: int) -> int:
+        slot = self.slots.index(None)
+        pages = (n_tokens + self.cfg.page_size - 1) // self.cfg.page_size
+        if len(self.free_pages) < pages:
+            raise RuntimeError("page pool exhausted at admission")
+        tbl = np.zeros((self.cfg.max_pages_per_seq,), np.int32)
+        for j in range(pages):
+            tbl[j] = self.free_pages.pop()
+        self.block_tables[slot] = tbl
+        self.lengths[slot] = 0
+        self.slots[slot] = req
+        return slot
+
+    def _ensure_page(self, slot: int) -> bool:
+        pos = int(self.lengths[slot])
+        pi = pos // self.cfg.page_size
+        if pi >= self.cfg.max_pages_per_seq:
+            return False
+        if self.block_tables[slot, pi] == 0:
+            if not self.free_pages:
+                return False
+            self.block_tables[slot, pi] = self.free_pages.pop()
+        return True
+
+    def _free_slot(self, slot: int) -> None:
+        for pid in self.block_tables[slot]:
+            if pid > 0:
+                self.free_pages.append(int(pid))
+        self.block_tables[slot] = 0
+        self.lengths[slot] = 0
+        self.slots[slot] = None
+
+    # ---- iteration-level scheduling -----------------------------------------
+    def step(self, now: Optional[float] = None) -> List[Request]:
+        """Run ONE iteration (a prefill batch or a decode batch). Returns the
+        requests that finished."""
+        finished: List[Request] = []
+        t0 = self.time_fn()
+        if self.waiting and self.can_admit(self.waiting[0].l_in + 8):
+            total_in, batch = 0, []
+            while self.waiting and self.can_admit(self.waiting[0].l_in + 8):
+                r = self.waiting.pop(0)
+                batch.append(r)
+                total_in += r.l_in
+                self._run_prefill(r)       # ends in a host read: synced
+            t1 = self.time_fn()
+            self.traces.record_prefill(total_in, t1 - t0)
+            for r in batch:
+                r.t_first_token = now if now is not None else t1
+                r.state = ReqState.DECODING
+            return finished
+        active_slots = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active_slots:
+            return finished
+        for i in list(active_slots):
+            if not self._ensure_page(i):
+                r = self.slots[i]          # out of pages: preempt youngest
+                self._free_slot(i)
+                r.l_out = 0
+                r.state = ReqState.QUEUED
+                self.waiting.insert(0, r)
+                active_slots.remove(i)
+        if not active_slots:
+            return finished
+        tokens = np.zeros((self.cfg.max_batch,), np.int64)
+        for i in active_slots:
+            tokens[i] = self.slots[i].tokens[-1]
+        logits = self._decode(tokens, active_slots)
+        nxt = logits.argmax(dim=-1).cpu().numpy()   # waits for the device
+        t1 = self.time_fn()
+        total_ctx = int(self.lengths[active_slots].sum()) + len(active_slots)
+        self.traces.record_decode(len(active_slots), total_ctx, t1 - t0)
+        for i in active_slots:
+            r = self.slots[i]
+            self.lengths[i] += 1
+            r.l_out += 1
+            r.t_decode_spent += (t1 - t0)
+            r.tokens.append(int(nxt[i]))
+            self.traces.record_kv(
+                r.context, r.context * self.kv_bytes_per_token / 2)
+            if r.l_out >= min(r.l_real or self.cfg.max_new_tokens,
+                              self.cfg.max_new_tokens):
+                r.state = ReqState.FINISHED
+                r.t_finish = now if now is not None else t1
+                finished.append(r)
+                self._free_slot(i)
+        return finished
+
+    def _gather_ctx_kv(self, slot: int, ctx: int):
+        """Contiguous (L, ctx_pad, Hkv, hd) copies of this slot's pages."""
+        n_pages = (ctx + self.cfg.page_size - 1) // self.cfg.page_size
+        n_pages = max(n_pages, 1)
+        pages = self._tensor(self.block_tables[slot][:n_pages], torch.long)
+        shape = (self.arch.n_layers, n_pages * self.cfg.page_size,
+                 self.arch.n_kv_heads, -1)
+        return (self.kv_k[:, pages].reshape(shape),
+                self.kv_v[:, pages].reshape(shape))
+
+    def _write_kv(self, slot: int, start: int, ks, vs) -> None:
+        n = ks.shape[1]
+        pos = np.arange(start, start + n)
+        pages = self._tensor(self.block_tables[slot][pos // self.cfg.page_size],
+                             torch.long)
+        offs = self._tensor(pos % self.cfg.page_size, torch.long)
+        self.kv_k[:, pages, offs] = ks.to(self.kv_k.dtype)
+        self.kv_v[:, pages, offs] = vs.to(self.kv_v.dtype)
+
+    def _run_prefill(self, req: Request) -> None:
+        s = req.l_in
+        slot = self._alloc_slot(req, s + 8)
+        toks = list(req.tokens[:s]) if req.tokens else \
+            list(np.random.default_rng(req.id).integers(
+                2, self.arch.vocab, s))
+        req.tokens = [int(t) for t in toks]
+        cchunk = self.cfg.prefill_chunk
+        if cchunk and s > cchunk:
+            # Sarathi-style: process the prompt in fixed-size chunks, each
+            # attending to the already-written context pages
+            logits = None
+            done = 0
+            while done < s:
+                n = min(cchunk, s - done)
+                bucket = max(8, 1 << (n - 1).bit_length())
+                chunk = toks[done:done + n] + [0] * (bucket - n)
+                k_ctx, v_ctx = self._gather_ctx_kv(slot, max(done, 1))
+                # slice to exactly the valid context so chunk positions in
+                # the concatenated KV line up with their logical positions
+                logits, ks, vs = self._chunk(chunk, k_ctx[:, :done],
+                                             v_ctx[:, :done], done, n - 1)
+                self._write_kv(slot, done, ks[:, :n], vs[:, :n])
+                done += n
+        else:
+            bucket = max(8, 1 << (s - 1).bit_length())  # pow-2 length buckets
+            padded = toks + [0] * (bucket - s)
+            logits, (ks, vs) = self.model.prefill(
+                self.params, self._tensor([padded], torch.long),
+                logit_pos=s - 1)
+            self._write_kv(slot, 0, ks[:, 0, :s], vs[:, 0, :s])
+        self.lengths[slot] = s
+        req.tokens.append(int(logits.argmax(dim=-1).item()))
+        req.l_out = 1      # the prefill emits the first token (TTFT)

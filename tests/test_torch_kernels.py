@@ -1,0 +1,179 @@
+"""The port's kernel wrappers on CPU tensors (their plain PyTorch versions)
+against the reference's Pallas kernels in interpret mode and its jnp
+oracles, over the reference's own sweeps. The CUDA kernels themselves are
+held against these plain versions on the card by chip_smoke.py."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.decode_attention import (  # noqa: E402
+    paged_decode_attention_pallas, paged_decode_ref as jax_paged_ref)
+from repro.kernels.flash_attention import (  # noqa: E402
+    attention_dense_ref as jax_dense_ref, flash_attention_pallas,
+    flash_attention_ref as jax_flash_ref)
+from repro.kernels.rmsnorm import (rmsnorm_pallas,  # noqa: E402
+                                   rmsnorm_ref as jax_rmsnorm_ref)
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    paged_decode_attention, paged_decode_ref)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_dense_ref, flash_attention, flash_attention_ref)
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
+
+_TORCH_DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == jnp.bfloat16 \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+def _pair(rng, shape, dtype):
+    """The same values as a jnp array and a torch tensor of one dtype."""
+    j = jnp.asarray(rng.standard_normal(shape), dtype)
+    t = torch.from_numpy(np.array(j, np.float32)).to(_TORCH_DT[dtype])
+    return j, t
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_tol(dtype))
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d", [
+    (1, 128, 128, 4, 4, 64),      # MHA square
+    (2, 64, 64, 8, 2, 32),        # GQA
+    (2, 128, 128, 8, 1, 64),      # MQA
+    (1, 32, 128, 4, 4, 128),      # rectangular (chunked prefill q block)
+])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_pallas_sweep(b, sq, skv, hq, hkv, d, dtype, causal):
+    rng = np.random.default_rng(0)
+    qj, qt = _pair(rng, (b, sq, hq, d), dtype)
+    kj, kt = _pair(rng, (b, skv, hkv, d), dtype)
+    vj, vt = _pair(rng, (b, skv, hkv, d), dtype)
+    off = skv - sq if causal else 0
+    got = flash_attention(qt, kt, vt, causal=causal, q_offset=off)
+    pallas = flash_attention_pallas(qj, kj, vj, causal=causal, q_offset=off,
+                                    block_q=32, block_k=32, interpret=True)
+    _close(got, pallas, dtype)
+    _close(got, jax_dense_ref(qj, kj, vj, causal=causal, q_offset=off),
+           dtype)
+    _close(attention_dense_ref(qt, kt, vt, causal=causal, q_offset=off),
+           pallas, dtype)
+
+
+@pytest.mark.parametrize("kv_chunk", [16, 64, 256])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_flash_offset_and_kv_len(kv_chunk, dtype):
+    """The runtime q_offset / kv_len mode the engine's chunked prefill uses
+    (no Pallas counterpart): held against the reference's jnp oracles."""
+    rng = np.random.default_rng(1)
+    qj, qt = _pair(rng, (2, 64, 4, 32), dtype)
+    kj, kt = _pair(rng, (2, 256, 2, 32), dtype)
+    vj, vt = _pair(rng, (2, 256, 2, 32), dtype)
+    kvlen = np.array([100, 256], np.int32)
+    kl_j, kl_t = jnp.asarray(kvlen), torch.from_numpy(kvlen)
+    got = flash_attention(qt, kt, vt, causal=True, q_offset=192,
+                          kv_len=kl_t, kv_chunk=kv_chunk)
+    _close(got, jax_flash_ref(qj, kj, vj, causal=True, q_offset=192,
+                              kv_len=kl_j, kv_chunk=kv_chunk), dtype)
+    _close(got, jax_dense_ref(qj, kj, vj, causal=True, q_offset=192,
+                              kv_len=kl_j), dtype)
+
+
+@pytest.mark.parametrize("ctx,c", [(0, 8), (8, 8), (16, 32), (40, 16)])
+def test_flash_chunked_prefill_shapes(ctx, c):
+    """Exactly the engine's chunk call: context KV + chunk, q_offset=ctx."""
+    rng = np.random.default_rng(2)
+    qj, qt = _pair(rng, (1, c, 4, 16), jnp.float32)
+    kj, kt = _pair(rng, (1, ctx + c, 2, 16), jnp.float32)
+    vj, vt = _pair(rng, (1, ctx + c, 2, 16), jnp.float32)
+    kl = np.full((1,), ctx + c, np.int32)
+    got = flash_attention(qt, kt, vt, causal=True, q_offset=ctx,
+                          kv_len=torch.from_numpy(kl))
+    _close(got, jax_flash_ref(qj, kj, vj, causal=True, q_offset=ctx,
+                              kv_len=jnp.asarray(kl)), jnp.float32)
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,page,npages,maxp", [
+    (2, 8, 2, 64, 16, 32, 4),
+    (4, 4, 4, 32, 8, 16, 8),
+    (1, 16, 1, 128, 32, 8, 2),
+])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_paged_decode_sweep(b, hq, hkv, d, page, npages, maxp, dtype):
+    rng = np.random.default_rng(2)
+    qj, qt = _pair(rng, (b, hq, d), dtype)
+    kj, kt = _pair(rng, (npages, page, hkv, d), dtype)
+    vj, vt = _pair(rng, (npages, page, hkv, d), dtype)
+    bt = rng.integers(0, npages, (b, maxp)).astype(np.int32)
+    lengths = rng.integers(1, maxp * page + 1, (b,)).astype(np.int32)
+    got = paged_decode_attention(qt, kt, vt, torch.from_numpy(bt),
+                                 torch.from_numpy(lengths))
+    pallas = paged_decode_attention_pallas(
+        qj, kj, vj, jnp.asarray(bt), jnp.asarray(lengths), interpret=True)
+    _close(got, pallas, dtype)
+    _close(got, jax_paged_ref(qj, kj, vj, jnp.asarray(bt),
+                              jnp.asarray(lengths)), dtype)
+
+
+@pytest.mark.parametrize("shape", [(4, 64), (2, 8, 128), (1, 256), (3, 96)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_rmsnorm_kernel_sweep(shape, dtype, with_res):
+    rng = np.random.default_rng(0)
+    xj, xt = _pair(rng, shape, dtype)
+    wj, wt = _pair(rng, shape[-1:], dtype)
+    rj, rt = _pair(rng, shape, dtype) if with_res else (None, None)
+    got = rmsnorm(xt, wt, rt)
+    _close(got, rmsnorm_pallas(xj, wj, rj, interpret=True, block_rows=2),
+           dtype)
+    _close(got, jax_rmsnorm_ref(xj, wj, rj), dtype)
+
+
+def test_rmsnorm_mixed_weight_dtype():
+    """Decode normalises fp32 activations with bf16 weights."""
+    rng = np.random.default_rng(3)
+    xj, xt = _pair(rng, (5, 96), jnp.float32)
+    wj, wt = _pair(rng, (96,), jnp.bfloat16)
+    _close(rmsnorm(xt, wt), jax_rmsnorm_ref(xj, wj), jnp.float32)
+
+
+def test_cpu_tensors_never_build(monkeypatch):
+    """A CPU tensor runs the plain version and never reaches the kernel
+    build (this machine may have no nvcc and no card)."""
+    def refuse(*a, **k):
+        raise AssertionError("kernel build touched by a CPU call")
+    for name in ("build", "library", "function"):
+        monkeypatch.setattr(_build, name, refuse)
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.standard_normal((1, 16, 4, 32))).float()
+    kv = torch.from_numpy(rng.standard_normal((1, 16, 2, 32))).float()
+    assert torch.equal(flash_attention(q, kv, kv),
+                       flash_attention_ref(q, kv, kv))
+    x = torch.from_numpy(rng.standard_normal((3, 32))).float()
+    assert torch.equal(rmsnorm(x, x[0]), rmsnorm_ref(x, x[0]))
+    pages = torch.from_numpy(rng.standard_normal((4, 8, 2, 32))).float()
+    bt = torch.zeros((1, 2), dtype=torch.int32)
+    ln = torch.tensor([5], dtype=torch.int32)
+    assert torch.equal(paged_decode_attention(q[:, 0], pages, pages, bt, ln),
+                       paged_decode_ref(q[:, 0], pages, pages, bt, ln))
+
+
+def test_non_cpu_non_cuda_tensor_raises():
+    """No quiet fallback: a device that is neither CPU nor CUDA raises."""
+    x = torch.empty((2, 64), device="meta")
+    with pytest.raises(ValueError):
+        rmsnorm(x, torch.empty((64,), device="meta"))
+    q = torch.empty((1, 8, 2, 64), device="meta")
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        paged_decode_attention(q[:, 0], q, q,
+                               torch.empty((1, 1), dtype=torch.int32),
+                               torch.empty((1,), dtype=torch.int32))
