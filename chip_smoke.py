@@ -9,14 +9,16 @@
    with nvcc for sm_90a, and prints the build time and ptxas's register and
    spill report.
 3. Kernel phases: each kernel (B1 paged decode, B2 flash attention, B3
-   RMSNorm) runs through its wrapper on the card at the main path's shapes,
-   is held against its plain PyTorch version on the same inputs (allclose,
-   rtol = atol = 2e-5 in fp32 and 2e-2 in bf16), and is timed with CUDA
+   RMSNorm) runs through its wrapper on the card at the shapes of the
+   paths below (llama2-7b's, then mamba2-1.3b's and zamba2-7b's), is held
+   against its plain PyTorch version on the same inputs (allclose, rtol =
+   atol = 2e-5 in fp32 and 2e-2 in bf16), and is timed with CUDA
    events beside its plain version, a PyTorch library call computing the
    same function where one exists, and its bound: the larger of the bytes
    it must move over 3.35 TB/s and its operations over the peak rate of
    their type (989 TFLOP/s bf16 tensor core, 67 TFLOP/s fp32), the H100
-   SXM datasheet figures.
+   SXM datasheet figures. B1 and B2 are also held against their plain
+   versions on rows that see no key (the mean of V).
 4. Small reference check: the port's engine on the card and on the CPU
    (plain versions) generate the same tokens for a reduced fp32 model,
    one-shot and chunked prefill.
@@ -25,14 +27,33 @@
    of 512 pages x 16 tokens, fp32 KV, per worker) serves a Poisson trace of
    12 requests at 8/s (prompts 64-960 tokens, 16-32 output tokens) with
    ``policy="aladdin"`` (Algorithm 1 placement, Algorithm 2 re-balancing)
-   and one engine iteration per worker per heartbeat, until drained. Launch counters are zeroed just before and read just
-   after; every kernel must have run. The engines' TraceBuffers refit the
-   Eq. 2/3 models on the card's iteration times.
+   and one engine iteration per worker per heartbeat, until drained. Launch
+   counters are zeroed just before and read just after; every kernel must
+   have run. The engines' TraceBuffers refit the Eq. 2/3 models on the
+   card's iteration times.
 6. Breakdown: one more engine on the same weights; prefill time at each
    bucket (cold, then warm) and a decode step at batch 8 x 512-token
-   contexts, each on the host clock, with device time by kernel from
-   torch.profiler.
-7. Prints ``{"kernels": [...]}``, then, last,
+   contexts, each on the host clock, with device time by kernel and the
+   count of device operations from torch.profiler. The llama2-7b weights
+   are then freed.
+7. B4 (Mamba-2 SSD scan) kernel phase at the mamba2-1.3b and zamba2-7b
+   prefill shapes (ragged S in fp32 and bf16 and a two-group case among
+   them), held against its plain version (y at the tolerances above, the
+   final state at 1e-3) and timed beside it; its bound counts C B^T at the
+   rate of the input type and the rest at the fp32 rate.
+8. Generation reference check: reduced fp32 mamba2-1.3b and zamba2-7b
+   generate (prefill, 12 greedy decode steps, flushes every 8) with the
+   same tokens on the card and on the CPU.
+9. SSM path: full-width mamba2-1.3b (random bf16 weights, seed 0) through
+   ``LM.prefill`` / ``LM.decode_step``: 4 prompts of 2048 tokens and 64
+   greedy steps, then 2 of 1000 and 16 steps. Hybrid path: full-width
+   zamba2-7b, 2 prompts of 1024 and 48 steps with a recent window of 32.
+   For each: prefill ms cold and warm, decode ms per step, tokens/s, peak
+   memory and launches (counters zeroed just before, read just after; B4
+   must run once per Mamba layer per prefill, B3 and, for the hybrid, B2
+   must run), then device time by kernel and the count of device
+   operations of one warm prefill and one decode step.
+10. Prints ``{"kernels": [...]}``, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -41,6 +62,7 @@ printing any result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -60,6 +82,7 @@ REPLACES = {
         "src/repro/kernels/decode_attention/decode_attention.py:72",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:76",
     "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:33",
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:70",
 }
 SOURCES = {
     "paged_decode_attention":
@@ -67,18 +90,36 @@ SOURCES = {
     "flash_attention":
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+    "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
 }
+STATE_TOL = dict(rtol=1e-3, atol=1e-3)     # SSD final state, as the
+                                           # reference's test_ssd_sweep
 
 
 def log(*a) -> None:
     print(*a, flush=True)
 
 
-def bound(nbytes: float, flops: float, kind: str):
+def bound(nbytes: float, ops: dict):
+    """Least time (ms) and what bounds it: the larger of ``nbytes`` over
+    the memory rate and the operations over the peak rate of their type,
+    ``ops`` mapping a type to its operations (the types' times added)."""
     t_mem = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[kind]
+    t_ops = sum(f / PEAK_FLOPS[kind] for kind, f in ops.items())
     return (max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops
             else "operations")
+
+
+def record(cases, kernel, case, kind, err, k_ms, p_ms, l_ms, nbytes, ops,
+           tol=None) -> None:
+    """Append one kernel-phase case to ``cases`` and log it."""
+    b_ms, b_by = bound(nbytes, ops)
+    row = {"kernel": kernel, "case": case, "dtype": kind,
+           "max_abs_err": err, "tol": tol or TOL[kind], "kernel_ms": k_ms,
+           "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+           "bound_by": b_by}
+    cases.append(row)
+    log(json.dumps(row))
 
 
 class Timer:
@@ -108,7 +149,9 @@ class Timer:
         return start.elapsed_time(end) / iters
 
 
-def check_close(torch, got, want, kind: str, what: str) -> float:
+def check_close(torch, got, want, kind: str, what: str,
+                tol=None) -> float:
+    tol = tol or TOL[kind]
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {got.shape}/{got.dtype} vs "
@@ -117,8 +160,8 @@ def check_close(torch, got, want, kind: str, what: str) -> float:
     if not bool(torch.isfinite(g).all()):
         raise AssertionError(f"{what}: non-finite kernel output")
     err = float((g - w).abs().max())
-    if not torch.allclose(g, w, **TOL[kind]):
-        raise AssertionError(f"{what}: max abs err {err} outside {TOL[kind]}")
+    if not torch.allclose(g, w, **tol):
+        raise AssertionError(f"{what}: max abs err {err} outside {tol}")
     return err
 
 
@@ -135,82 +178,80 @@ def kernel_phases(torch, F, timer):
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def record(kernel, case, kind, err, k_ms, p_ms, l_ms, nbytes, flops):
-        b_ms, b_by = bound(nbytes, flops, kind)
-        row = {"kernel": kernel, "case": case, "dtype": kind,
-               "max_abs_err": err, "tol": TOL[kind], "kernel_ms": k_ms,
-               "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-               "bound_by": b_by}
-        cases.append(row)
-        log(json.dumps(row))
-
     # ---- B3 RMSNorm: prefill rows in bf16, decode rows in fp32 ------------
-    d = 4096
-    for rows, kind, with_res in ((1024, "bf16", False), (64, "bf16", False),
-                                 (8, "fp32", False), (1024, "bf16", True),
-                                 (8, "fp32", True)):
-        dt = torch.bfloat16 if kind == "bf16" else torch.float32
-        x = randn((rows, d), dt)
-        w = randn((d,), torch.bfloat16)          # weights are bf16 params
-        r = randn((rows, d), dt) if with_res else None
-        err = check_close(torch, rmsnorm(x, w, r, eps=1e-5),
-                          rmsnorm_ref(x, w, r, 1e-5), kind,
-                          f"rmsnorm {rows}x{d} {kind}")
-        k_ms = timer(lambda: rmsnorm(x, w, r, eps=1e-5))
-        p_ms = timer(lambda: rmsnorm_ref(x, w, r, 1e-5))
-        l_ms = None
-        if r is None and dt == w.dtype:
-            l_ms = timer(lambda: F.rms_norm(x, (d,), w, 1e-5))
-        n_in = rows * d * (2 if with_res else 1)
-        nbytes = (n_in + rows * d) * x.element_size() + d * w.element_size()
-        flops = rows * d * (4 + (1 if with_res else 0))
-        record("rmsnorm", f"{rows}x{d}{' +residual' if with_res else ''}",
-               kind, err, k_ms, p_ms, l_ms, nbytes, flops)
+    def rmsnorm_cases(shapes):
+        for rows, d, kind, with_res in shapes:
+            dt = torch.bfloat16 if kind == "bf16" else torch.float32
+            x = randn((rows, d), dt)
+            w = randn((d,), torch.bfloat16)          # weights are bf16 params
+            r = randn((rows, d), dt) if with_res else None
+            err = check_close(torch, rmsnorm(x, w, r, eps=1e-5),
+                              rmsnorm_ref(x, w, r, 1e-5), kind,
+                              f"rmsnorm {rows}x{d} {kind}")
+            k_ms = timer(lambda: rmsnorm(x, w, r, eps=1e-5))
+            p_ms = timer(lambda: rmsnorm_ref(x, w, r, 1e-5))
+            l_ms = None
+            if r is None and dt == w.dtype:
+                l_ms = timer(lambda: F.rms_norm(x, (d,), w, 1e-5))
+            n_in = rows * d * (2 if with_res else 1)
+            nbytes = (n_in + rows * d) * x.element_size() \
+                + d * w.element_size()
+            flops = rows * d * (4 + (1 if with_res else 0))
+            record(cases, "rmsnorm",
+                   f"{rows}x{d}{' +residual' if with_res else ''}", kind, err,
+                   k_ms, p_ms, l_ms, nbytes, {kind: flops})
 
     # ---- B2 flash attention: prefill buckets in bf16, chunked in fp32 -----
     def attn_pairs(sq, skv, q_offset, kv_hi):
         rows = torch.arange(sq, dtype=torch.float64) + q_offset + 1
         return float(torch.clamp(rows, max=kv_hi).sum())
 
-    for sq, skv, hq, hkv, kind, q_offset, kv_len in (
-            (128, 128, 32, 32, "bf16", 0, None),
-            (512, 512, 32, 32, "bf16", 0, None),
-            (1024, 1024, 32, 32, "bf16", 0, None),
-            (1024, 1024, 32, 8, "bf16", 0, None),
-            (256, 768, 32, 32, "fp32", 512, 768),
-            (256, 768, 32, 32, "bf16", 512, 700)):
-        dt = torch.bfloat16 if kind == "bf16" else torch.float32
-        hd = 128
-        q = randn((1, sq, hq, hd), dt)
-        k = randn((1, skv, hkv, hd), dt)
-        v = randn((1, skv, hkv, hd), dt)
-        kl = None if kv_len is None else torch.tensor(
-            [kv_len], dtype=torch.int32, device=dev)
+    def flash_cases(shapes):
+        for b, sq, skv, hq, hkv, hd, kind, q_offset, kv_len in shapes:
+            dt = torch.bfloat16 if kind == "bf16" else torch.float32
+            q = randn((b, sq, hq, hd), dt)
+            k = randn((b, skv, hkv, hd), dt)
+            v = randn((b, skv, hkv, hd), dt)
+            kl = None if kv_len is None else torch.tensor(
+                [kv_len] * b, dtype=torch.int32, device=dev)
 
-        def kern():
-            return flash_attention(q, k, v, causal=True, q_offset=q_offset,
-                                   kv_len=kl)
-
-        def plain():
-            return flash_attention_ref(q, k, v, causal=True,
+            def kern():
+                return flash_attention(q, k, v, causal=True,
                                        q_offset=q_offset, kv_len=kl)
-        err = check_close(torch, kern(), plain(), kind,
-                          f"flash {sq}x{skv} {hq}/{hkv} {kind}")
-        l_ms = None
-        if q_offset == 0 and kv_len is None and sq == skv:
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            gqa = {"enable_gqa": True} if hq != hkv else {}
-            l_ms = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, **gqa))
-        kv_hi = skv if kv_len is None else kv_len
-        pairs = attn_pairs(sq, skv, q_offset, kv_hi)
-        esz = q.element_size()
-        nbytes = (2 * sq * hq * hd + 2 * kv_hi * hkv * hd) * esz
-        flops = 4.0 * pairs * hq * hd
-        case = f"B=1 Sq={sq} Skv={skv} H={hq}/{hkv} D={hd}" + (
-            f" q_offset={q_offset} kv_len={kv_len}" if q_offset else "")
-        record("flash_attention", case, kind, err, timer(kern),
-               timer(plain), l_ms, nbytes, flops)
+
+            def plain():
+                return flash_attention_ref(q, k, v, causal=True,
+                                           q_offset=q_offset, kv_len=kl)
+            err = check_close(torch, kern(), plain(), kind,
+                              f"flash {sq}x{skv} {hq}/{hkv} {kind}")
+            l_ms = None
+            if q_offset == 0 and kv_len is None and sq == skv:
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                gqa = {"enable_gqa": True} if hq != hkv else {}
+                l_ms = timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, **gqa))
+            kv_hi = skv if kv_len is None else kv_len
+            pairs = attn_pairs(sq, skv, q_offset, kv_hi)
+            esz = q.element_size()
+            nbytes = b * (2 * sq * hq * hd + 2 * kv_hi * hkv * hd) * esz
+            flops = 4.0 * b * pairs * hq * hd
+            case = f"B={b} Sq={sq} Skv={skv} H={hq}/{hkv} D={hd}" + (
+                f" q_offset={q_offset} kv_len={kv_len}" if q_offset else "")
+            record(cases, "flash_attention", case, kind, err, timer(kern),
+                   timer(plain), l_ms, nbytes, {kind: flops})
+
+    # The llama2-7b shapes come first and in a fixed order: the seeded draws
+    # before B1 decide its lengths, so its timed case stays the same from
+    # run to run. The other models' shapes follow B1.
+    rmsnorm_cases(((1024, 4096, "bf16", False), (64, 4096, "bf16", False),
+                   (8, 4096, "fp32", False), (1024, 4096, "bf16", True),
+                   (8, 4096, "fp32", True)))
+    flash_cases(((1, 128, 128, 32, 32, 128, "bf16", 0, None),
+                 (1, 512, 512, 32, 32, 128, "bf16", 0, None),
+                 (1, 1024, 1024, 32, 32, 128, "bf16", 0, None),
+                 (1, 1024, 1024, 32, 8, 128, "bf16", 0, None),
+                 (1, 256, 768, 32, 32, 128, "fp32", 512, 768),
+                 (1, 256, 768, 32, 32, 128, "bf16", 512, 700)))
 
     # ---- B1 paged decode over the engine's page pool ----------------------
     n_pages, page, max_pages, hd = 512, 16, 64, 128
@@ -243,10 +284,108 @@ def kernel_phases(torch, F, timer):
         nbytes = (2 * toks * hkv * hd + 2 * b * hq * hd) * esz \
             + bt.numel() * 4 + b * 4
         flops = 4.0 * toks * hq * hd
-        record("paged_decode_attention",
+        record(cases, "paged_decode_attention",
                f"B={b} H={hq}/{hkv} D={hd} page={page} max_pages={max_pages}"
                f" lengths<={max_pages * page}", kind, err, k_ms, p_ms, None,
-               nbytes, flops)
+               nbytes, {kind: flops})
+
+    # mamba2-1.3b (d 2048: 4 x 2048 prefill rows, batch-4 decode rows) and
+    # zamba2-7b (d 3584: 2 x 1024 prefill rows, batch-2 decode rows; its
+    # attention heads of 112)
+    rmsnorm_cases(((8192, 2048, "bf16", False), (4, 2048, "bf16", False),
+                   (2048, 3584, "bf16", False), (2, 3584, "bf16", False)))
+    flash_cases(((2, 1024, 1024, 32, 32, 112, "bf16", 0, None),))
+
+    # ---- fully masked rows (C7): no visible key -> mean of V, as the plain
+    # versions softmax all -1e30 logits to uniform weights ----------------
+    for kind in ("fp32", "bf16"):
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        q, k, v = (randn(s, dt) for s in ((2, 64, 8, 128), (2, 200, 4, 128),
+                                          (2, 200, 4, 128)))
+        kl = torch.tensor([0, 150], dtype=torch.int32, device=dev)
+        for off in (0, 136):
+            err = check_close(
+                torch, flash_attention(q, k, v, causal=True, q_offset=off,
+                                       kv_len=kl),
+                flash_attention_ref(q, k, v, causal=True, q_offset=off,
+                                    kv_len=kl), kind,
+                f"flash kv_len=[0, 150] q_offset={off} {kind}")
+            log(f"[c7] flash_attention kv_len=[0, 150] q_offset={off} {kind}:"
+                f" max abs err {err:.3g} against the plain version")
+        kp, vp = randn((32, 16, 4, 128), dt), randn((32, 16, 4, 128), dt)
+        bt = torch.randint(0, 32, (3, 4), generator=gen, device=dev,
+                           dtype=torch.int32)
+        ln = torch.tensor([0, 33, 64], dtype=torch.int32, device=dev)
+        q = randn((3, 16, 128), dt)
+        err = check_close(torch, paged_decode_attention(q, kp, vp, bt, ln),
+                          paged_decode_ref(q, kp, vp, bt, ln), kind,
+                          f"paged decode lengths=[0, 33, 64] {kind}")
+        log(f"[c7] paged_decode_attention lengths=[0, 33, 64] {kind}: max "
+            f"abs err {err:.3g} against the plain version")
+    return cases
+
+
+def ssd_kernel_phase(torch, timer):
+    """B4 at the Mamba-2 prefill's shapes, held against its plain version
+    (``ssd_chunked_ref``, or ``ssd_ref`` at a ragged S) and timed beside
+    it. No single PyTorch call computes the SSD scan: library_ms is None.
+    The bound counts the least work: C B^T once per (batch, chunk, group)
+    over the lower triangle, at the rate of B and C's type; and in fp32,
+    per (batch, head, chunk), the intra-chunk triangle times x, y_inter
+    and the state update."""
+    from repro_torch.kernels.ssd_scan import (ssd_chunked_ref, ssd_ref,
+                                              ssd_scan)
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = []
+    for b, s, h, p, g, n, q, kind, init in (
+            (4, 2048, 64, 64, 1, 128, 256, "bf16", True),
+            (4, 2048, 64, 64, 1, 128, 256, "bf16", False),
+            (1, 2048, 64, 64, 1, 128, 256, "fp32", True),
+            (1, 1000, 64, 64, 1, 128, 256, "fp32", True),
+            (2, 1024, 112, 64, 1, 64, 256, "bf16", False),
+            (2, 256, 2, 64, 2, 32, 64, "fp32", True),
+            (2, 1000, 64, 64, 1, 128, 256, "bf16", False)):
+        dt_ = torch.bfloat16 if kind == "bf16" else torch.float32
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        x = randn(b, s, h, p).to(dt_)
+        bm, cm = randn(b, s, g, n).to(dt_), randn(b, s, g, n).to(dt_)
+        dtv = torch.rand((b, s, h), generator=gen, device=dev) * 0.099 + 0.001
+        a = -(torch.rand((h,), generator=gen, device=dev) * 1.5 + 0.5)
+        d = randn(h)
+        st = randn(b, h, p, n) * 0.1 if init else None
+
+        def kern():
+            return ssd_scan(x, dtv, a, bm, cm, d, st, chunk=q)
+
+        def plain():
+            if s % q:
+                return ssd_ref(x, dtv, a, bm, cm, d, st)
+            return ssd_chunked_ref(x, dtv, a, bm, cm, d, st, chunk=q)
+        (y, fin), (y_p, fin_p) = kern(), plain()
+        what = f"ssd_scan B={b} S={s} H={h} P={p} G={g} N={n} {kind}"
+        err = max(check_close(torch, y, y_p, kind, what + " y"),
+                  check_close(torch, fin, fin_p, "fp32", what + " state",
+                              STATE_TOL))
+        cbt = rest = 0.0
+        for c0 in range(0, s, q):
+            lc = min(q, s - c0)
+            tri = lc * (lc + 1) / 2
+            cbt += b * g * tri * n * 2
+            rest += b * h * (tri * p * 2 + 2 * lc * n * p * 2)
+        ops = {"fp32": rest}
+        ops[kind] = ops.get(kind, 0.0) + cbt
+        esz = x.element_size()
+        nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * esz \
+            + b * s * h * 4 + 2 * h * 4 \
+            + (2 if init else 1) * b * h * p * n * 4
+        record(cases, "ssd_scan",
+               f"B={b} S={s} H={h} P={p} G={g} N={n} Q={q}"
+               + (" init" if init else ""), kind, err, timer(kern),
+               timer(plain), None, nbytes, ops,
+               tol={"y": TOL[kind], "state": STATE_TOL})
     return cases
 
 
@@ -296,6 +435,11 @@ def reference_check(torch):
                 f"card tokens == CPU tokens ({sum(map(len, outs[1]))} tokens)")
 
 
+def _numel(tree) -> int:
+    return sum(_numel(v) if isinstance(v, dict) else v.numel()
+               for v in tree.values())
+
+
 def main_path(torch, counters):
     import numpy as np
 
@@ -311,8 +455,7 @@ def main_path(torch, counters):
     params = LM(arch, device="cuda").init(
         torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in params.values() if torch.is_tensor(t)) \
-        + sum(t.numel() for t in params["seg0"].values())
+    n_params = _numel(params)
     log(f"[main] llama2-7b full width: {arch.n_layers} layers, d_model "
         f"{arch.d_model}, {arch.n_heads} heads, d_ff {arch.d_ff}, vocab "
         f"{arch.vocab}; {n_params / 1e9:.2f}B random bf16 params in "
@@ -403,30 +546,34 @@ def main_path(torch, counters):
 
 
 def _device_ms_by_kernel(torch, fn, n=3):
-    """Device time per call of ``fn`` by kernel name, from torch.profiler
-    over n calls (device-side events only)."""
+    """Device time per call of ``fn`` by kernel name, and device operations
+    (kernels and copies) per call, from torch.profiler over n calls
+    (device-side events only)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(n):
             fn()
-    by_name = {}
+    by_name, ops = {}, 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t = e.self_device_time_total / 1e3 / n
         if t > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + t
-    return by_name
+            ops += e.count
+    return by_name, ops / n
 
 
-def _summary(by_name, wall_ms):
+def _summary(profile, wall_ms):
+    by_name, ops = profile
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     if not busy:
         log("[breakdown] the profiler recorded no device time")
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": (1 - busy / wall_ms) if busy else None,
+            "device_ops": ops,
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 
@@ -483,6 +630,169 @@ def breakdown(torch, arch, params, batch=8, prompt=512, steps=10):
     log("[breakdown] decode " + json.dumps(dec))
 
 
+def _to_cuda(tree):
+    return {k: _to_cuda(v) if isinstance(v, dict) else v.cuda()
+            for k, v in tree.items()}
+
+
+def _recent_len(cache) -> int:
+    """Filled length of the staged attention caches' recent buffers (0 for
+    a model without attention)."""
+    for c in cache:
+        if isinstance(c, dict):
+            return c.get("attn", c)["rec_len"]
+    return 0
+
+
+def generate(torch, model, params, toks, steps, s_max, step_ms=None):
+    """Greedy: ``LM.prefill`` then ``steps`` x ``LM.decode_step``, running
+    ``LM.maybe_flush`` whenever the recent buffers are full. Returns the
+    tokens (B, 1 + steps); appends each step's host-clock ms (ending in a
+    sync) to ``step_ms`` when given."""
+    logits, cache = model.prefill(params, toks, s_max=s_max)
+    out = [logits.argmax(-1)]
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        if _recent_len(cache) == model.recent_window:
+            cache = model.maybe_flush(cache)
+        logits, cache = model.decode_step(params, cache, out[-1])
+        out.append(logits.argmax(-1))
+        if step_ms is not None:
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+    return torch.stack(out, dim=1)
+
+
+def generation_reference_check(torch):
+    """Reduced fp32 mamba2-1.3b and zamba2-7b generate on the card (kernels
+    B2-B4) and on the CPU (plain versions): prefill, then 12 greedy decode
+    steps with a recent window of 8, so maybe_flush runs. The tokens must be
+    identical. A 45-token prompt is not a multiple of the reduced SSD chunk
+    (32): the CPU takes the sequential oracle there, the card the ragged
+    kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.model import LM
+    for name, n_layers in (("mamba2-1.3b", 4), ("zamba2-7b", 5)):
+        arch = dataclasses.replace(
+            reduced(get_arch(name), n_layers=n_layers, d_model=256,
+                    vocab=512), param_dtype="float32")
+        cpu = LM(arch, device="cpu", recent_window=8)
+        params = cpu.init(torch.Generator().manual_seed(1))
+        cuda = LM(arch, device="cuda", recent_window=8)
+        params_cuda = _to_cuda(params)
+        for s in (45, 64):
+            toks = torch.randint(2, arch.vocab, (2, s),
+                                 generator=torch.Generator().manual_seed(s))
+            want = generate(torch, cpu, params, toks, 12, s + 24)
+            got = generate(torch, cuda, params_cuda, toks.cuda(), 12,
+                           s + 24).cpu()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} prompt {s}: card tokens "
+                                     f"{got.tolist()} != CPU {want.tolist()}")
+            log(f"[reference] {name} reduced ({n_layers} layers, d_model "
+                f"256) fp32 prompt {s}: card tokens == CPU tokens "
+                f"({got.numel()} tokens)")
+
+
+def generation_path(torch, counters, name, runs, window, must_launch):
+    """Full-width ``name`` with random bf16 weights from seed 0 generates
+    greedily through ``LM.prefill`` / ``LM.decode_step`` (and
+    ``maybe_flush`` every ``window`` steps) for each (batch, prompt,
+    steps) in ``runs``. Counters are zeroed just before and read just
+    after; each kernel in ``must_launch`` must have run. Then one warm
+    prefill and one decode step of the first run are profiled by
+    kernel."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import LM
+    arch = get_arch(name)
+    model = LM(arch, device="cuda", recent_window=window)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = _numel(params)
+    log(f"[{name}] full width: {arch.n_layers} layers, d_model "
+        f"{arch.d_model}, vocab {arch.vocab}, segments "
+        f"{[(g.kind, g.n, g.inner) for g in model.segments]}; "
+        f"{n_params / 1e9:.2f}B random bf16 params in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(0)
+    prompts = [torch.as_tensor(rng.integers(2, arch.vocab, (b, s)),
+                               device="cuda") for b, s, _ in runs]
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    results = []
+    for (b, s, steps), toks in zip(runs, prompts):
+        s_max = s + steps + window
+        pre_ms = []
+        for _ in range(2):                                # cold, then warm
+            t0 = time.perf_counter()
+            logits, _ = model.prefill(params, toks, s_max=s_max)
+            torch.cuda.synchronize()
+            pre_ms.append(1e3 * (time.perf_counter() - t0))
+        step_ms = []
+        t0 = time.perf_counter()
+        out = generate(torch, model, params, toks, steps, s_max, step_ms)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        if out.shape != (b, steps + 1) or not bool(
+                ((out >= 0) & (out < arch.vocab)).all()):
+            raise AssertionError(f"{name}: bad tokens {out.shape}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{name}: non-finite prefill logits")
+        results.append({
+            "batch": b, "prompt": s, "decode_steps": steps,
+            "prefill_cold_ms": pre_ms[0], "prefill_warm_ms": pre_ms[1],
+            "decode_ms_per_step": float(np.mean(step_ms)),
+            "decode_ms_min": min(step_ms),
+            "output_tokens_per_s": b * steps / (sum(step_ms) / 1e3),
+            "generate_s": gen_s, "distinct_tokens": int(out.unique().numel())})
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    summary = {"runs": results, "launches": launches,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[{name}] " + json.dumps(summary))
+    for k in must_launch:
+        if launches[k] <= 0:
+            raise AssertionError(f"{name}: kernel {k} never launched")
+    n_mamba = sum(g.n * (g.inner if g.kind == "hyb_super" else 1)
+                  for g in model.segments if g.kind != "dense")
+    if launches["ssd_scan"] != 3 * len(runs) * n_mamba:
+        raise AssertionError(f"{name}: {launches['ssd_scan']} B4 launches, "
+                             f"not {n_mamba} per prefill over "
+                             f"{3 * len(runs)} prefills")
+
+    b, s, steps = runs[0]
+    toks = prompts[0]
+    s_max = s + steps + window
+
+    def prefill():
+        logits, _ = model.prefill(params, toks, s_max=s_max)
+        return int(logits.argmax(-1)[0])
+    t0 = time.perf_counter()
+    prefill()
+    warm = 1e3 * (time.perf_counter() - t0)
+    log(f"[{name}] prefill B={b} S={s} " + json.dumps(_summary(
+        _device_ms_by_kernel(torch, prefill, n=1), warm)))
+    logits, cache = model.prefill(params, toks, s_max=s_max)
+    tok = logits.argmax(-1)
+
+    def step():
+        logits, _ = model.decode_step(params, cache, tok)
+        return int(logits.argmax(-1)[0])
+    step()
+    t0 = time.perf_counter()
+    step()
+    warm = 1e3 * (time.perf_counter() - t0)
+    log(f"[{name}] decode step B={b} context {s} " + json.dumps(_summary(
+        _device_ms_by_kernel(torch, step, n=3), warm)))
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -499,6 +809,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import paged_decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -526,13 +837,32 @@ def main() -> int:
     counters = (paged_decode_attention, flash_attention, rmsnorm)
     launches, arch, params = main_path(torch, counters)
     breakdown(torch, arch, params)
+    del params                      # free llama2-7b before the Mamba phases
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cases += ssd_kernel_phase(torch, timer)
+    generation_reference_check(torch)
+    counters += (ssd_scan,)
+    ssm = generation_path(torch, counters, "mamba2-1.3b",
+                          runs=((4, 2048, 64), (2, 1000, 16)), window=256,
+                          must_launch=("rmsnorm", "ssd_scan"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    generation_path(torch, counters, "zamba2-7b",
+                    runs=((2, 1024, 48),), window=32,
+                    must_launch=("flash_attention", "rmsnorm", "ssd_scan"))
+    launches["ssd_scan"] = ssm["ssd_scan"]
 
     representative = {"rmsnorm": "1024x4096",
                       "flash_attention": "B=1 Sq=1024 Skv=1024 H=32/32 D=128",
                       "paged_decode_attention": "B=8 H=32/32 D=128 page=16 "
-                                                "max_pages=64 lengths<=1024"}
+                                                "max_pages=64 lengths<=1024",
+                      "ssd_scan": "B=4 S=2048 H=64 P=64 G=1 N=128 Q=256 "
+                                  "init"}
     kernels = []
-    for name in ("paged_decode_attention", "flash_attention", "rmsnorm"):
+    for name in ("paged_decode_attention", "flash_attention", "rmsnorm",
+                 "ssd_scan"):
         rep = next(c for c in cases if c["kernel"] == name
                    and c["case"] == representative[name])
         kernels.append({

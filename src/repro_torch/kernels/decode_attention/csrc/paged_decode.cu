@@ -11,7 +11,9 @@
 //   {64, 128}; G = Hq / Hkv <= 8. For each sequence b and query head h,
 //   softmax(q.k / sqrt(D)) . v over positions [0, lengths[b]) of the pages
 //   block_table[b, :]. Entries past the length are never read (the engine
-//   points them at its null page 0).
+//   points them at its null page 0), except for a sequence of length 0,
+//   which gets the plain version's answer: the mean of V over every page
+//   of its row of the block table.
 //
 // What bounds it on the H100: device-memory bytes. Each live K/V element
 // is used by the G query heads of its group, ~2*G flops per element read,
@@ -98,6 +100,21 @@ __global__ void __launch_bounds__(kThreads)
   const int* bt = block_table + static_cast<size_t>(b) * max_pages;
   const size_t tok_stride = static_cast<size_t>(Hkv) * D;
   const size_t head_off = static_cast<size_t>(hk) * D + lane * VPT;
+  if (len <= 0) {
+    // no visible position (C7): the plain version softmaxes the
+    // max_pages * page gathered logits, all -1e30, to uniform weights, so
+    // each query head of the group gets the mean of the gathered V rows
+    const int n_pos = max_pages * page;
+    for (int d = threadIdx.x; d < D; d += kThreads) {
+      float s = 0.f;
+      for (int p = 0; p < n_pos; ++p)
+        s += to_f32(vpool[(static_cast<size_t>(bt[p / page]) * page +
+                           p % page) * tok_stride + hk * D + d]);
+      const T m = from_f32<T>(s / n_pos);
+      for (int g = 0; g < G; ++g) out[q_base + g * D + d] = m;
+    }
+    return;
+  }
 
   for (int t0 = 0; t0 < len; t0 += kTile) {
     // rows this warp owns in the tile: positions t0 + warp + kWarps * i

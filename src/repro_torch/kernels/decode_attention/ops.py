@@ -1,14 +1,15 @@
 """Paged decode attention (kernel B1): the CUDA kernel's wrapper and its
 plain PyTorch version, which mirrors the reference oracle
 ``repro.kernels.decode_attention.ref.paged_decode_ref`` (gather the pages,
-then one masked softmax per GQA group in fp32).
+then one masked softmax per GQA group in fp32), and the staged-cache
+decode's plain building blocks ``attend_partial`` / ``merge_partials``.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
 in ``csrc/paged_decode.cu`` or raises."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -19,6 +20,45 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _MAX_GROUP = 8
+
+
+def attend_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None,
+                   scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Partial flash state over one KV segment (the staged-cache decode's
+    building block; plain torch, as the reference's is jnp).
+
+    q: (B, Hq, D); k, v: (B, S, Hkv, D); valid: (B, S) bool or None.
+    Returns m, l: (B, Hq); o: (B, Hq, D) unnormalised (o = sum p*v)."""
+    b, hq, d = q.shape
+    _, s, hkv, _ = k.shape
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, g, d)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
+    if valid is not None:
+        logits = torch.where(valid[:, None, None, :], logits,
+                             torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=-1)                              # (B, Hkv, G)
+    p = torch.exp(logits - m[..., None])
+    l_run = p.sum(dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
+    return m.reshape(b, hq), l_run.reshape(b, hq), o.reshape(b, hq, d)
+
+
+def merge_partials(parts: Sequence[Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]]) -> torch.Tensor:
+    """Associative merge of flash states; returns normalised (B, Hq, D)."""
+    m, l_run, o = parts[0]
+    for m2, l2, o2 in parts[1:]:
+        m_new = torch.maximum(m, m2)
+        a1 = torch.exp(m - m_new)
+        a2 = torch.exp(m2 - m_new)
+        l_run = l_run * a1 + l2 * a2
+        o = o * a1[..., None] + o2 * a2[..., None]
+        m = m_new
+    return o / torch.clamp_min(l_run, 1e-37)[..., None]
 
 
 def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -108,4 +148,5 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 paged_decode_attention.launches = 0
 
-__all__ = ["paged_decode_attention", "paged_decode_ref"]
+__all__ = ["paged_decode_attention", "paged_decode_ref", "attend_partial",
+           "merge_partials"]

@@ -7,9 +7,12 @@
 // prefill runs here too (the JAX engine used the jnp reference for it).
 //
 //   q: (B, Sq, Hq, D), k/v: (B, Skv, Hkv, D), out: (B, Sq, Hq, D), one type
-//   (fp32 or bf16), Hq % Hkv == 0, D in {64, 128}. Query row i sits at
+//   (fp32 or bf16), Hq % Hkv == 0, D in {64, 128}, or 112 in bf16 (the
+//   head of zamba2-7b's shared attention block). Query row i sits at
 //   position q_offset + i; with `causal` it sees keys at positions <= its
-//   own; keys at or past kv_len[b] (when given) are masked.
+//   own; keys at or past kv_len[b] (when given) are masked. A sequence
+//   with kv_len[b] == 0 sees no key and gets the plain version's answer,
+//   the mean of V over all Skv keys.
 //
 // What bounds it on the H100: operations. Causal prefill at Sq = 1024 does
 // ~2*Sq*Sq*D flops per head against ~4*Sq*D*bytes of traffic, at or above
@@ -64,6 +67,20 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
+// A query row that sees no key (kv_len[b] <= 0): the plain versions
+// softmax Skv logits of -1e30 each, which is uniform, so every row of the
+// block is the mean of V over all Skv keys (C7).
+template <typename T>
+__device__ void mean_v_rows(const T* vp, size_t kv_row, int Skv, int D,
+                            T* op, size_t q_row, int q0, int Sq) {
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < Skv; ++k) s += repro::to_f32(vp[k * kv_row + d]);
+    const T m = repro::from_f32<T>(Skv > 0 ? s / Skv : 0.f);
+    for (int r = q0; r < min(q0 + kBQ, Sq); ++r) op[r * q_row + d] = m;
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q,
@@ -91,6 +108,10 @@ __global__ void __launch_bounds__(kThreads)
   const float* kp = k + static_cast<size_t>(b) * Skv * kv_row + hk * D;
   const float* vp = v + static_cast<size_t>(b) * Skv * kv_row + hk * D;
   float* op = o + static_cast<size_t>(b) * Sq * q_row + h * D;
+  if (kv_len != nullptr && kv_len[b] <= 0) {
+    mean_v_rows(vp, kv_row, Skv, D, op, q_row, q0, Sq);
+    return;
+  }
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, c = idx % D, qr = q0 + r;
@@ -276,6 +297,10 @@ __global__ void __launch_bounds__(kMmaThreads)
   const bf16* kp = k + static_cast<size_t>(b) * Skv * kv_row + hk * D;
   const bf16* vp = v + static_cast<size_t>(b) * Skv * kv_row + hk * D;
   bf16* op = o + static_cast<size_t>(b) * Sq * q_row + h * D;
+  if (kv_len != nullptr && kv_len[b] <= 0) {
+    mean_v_rows(vp, kv_row, Skv, D, op, q_row, q0, Sq);
+    return;
+  }
 
   load_tile<D, LDS>(sQ, qp, q_row, Sq - q0);
   __syncthreads();
@@ -455,14 +480,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kl = static_cast<const int*>(kv_len);
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
-  if (Hkv <= 0 || Hq % Hkv != 0 || (D != 64 && D != 128))
+  if (Hkv <= 0 || Hq % Hkv != 0 ||
+      (D != 64 && D != 128 && !(bf16_in && D == 112)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (bf16_in)
-    e = D == 64 ? launch_bf16<64>(q, k, v, o, kl, B, Sq, Skv, Hq, Hkv,
-                                  q_offset, causal, scale, s)
-                : launch_bf16<128>(q, k, v, o, kl, B, Sq, Skv, Hq, Hkv,
-                                   q_offset, causal, scale, s);
+    e = D == 64    ? launch_bf16<64>(q, k, v, o, kl, B, Sq, Skv, Hq, Hkv,
+                                     q_offset, causal, scale, s)
+        : D == 112 ? launch_bf16<112>(q, k, v, o, kl, B, Sq, Skv, Hq, Hkv,
+                                      q_offset, causal, scale, s)
+                   : launch_bf16<128>(q, k, v, o, kl, B, Sq, Skv, Hq, Hkv,
+                                      q_offset, causal, scale, s);
   else
     e = D == 64 ? launch_f32<64>(q, k, v, o, kl, B, Sq, Skv, Hq, Hkv,
                                  q_offset, causal, scale, s)

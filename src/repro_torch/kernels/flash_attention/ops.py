@@ -128,11 +128,12 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if k.shape[0] != b or dk != d or hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not form GQA heads")
-    if d not in (64, 128):
-        raise ValueError(f"flash_attention: head dim {d} not in (64, 128)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; one of {_DTYPES} expected")
+    if d not in (64, 128) and not (d == 112 and q.dtype == torch.bfloat16):
+        raise ValueError(f"flash_attention: head dim {d} not in (64, 128), "
+                         "or 112 in bf16")
     if not all(t.device == q.device and t.is_contiguous()
                for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be contiguous on "

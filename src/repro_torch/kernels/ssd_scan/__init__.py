@@ -1,0 +1,5 @@
+from repro_torch.kernels.ssd_scan.ops import (ssd_chunked_ref,
+                                              ssd_decode_step, ssd_ref,
+                                              ssd_scan)
+
+__all__ = ["ssd_scan", "ssd_ref", "ssd_chunked_ref", "ssd_decode_step"]

@@ -1,32 +1,55 @@
-"""Dense LM of the port (``Family.DENSE`` and ``Family.AUDIO``): the part of
-the reference's unified builder (``repro.models.model.LM``) that the serving
-engine runs.
+"""The port's LM, from the reference's unified builder
+(``repro.models.model.LM``), for ``Family.DENSE``, ``AUDIO``, ``SSM`` and
+``HYBRID``. A model is a list of segments, each a stack of identical
+layers (a Python loop here, ``lax.scan`` in the reference):
+
+  dense/audio:  [dense x L]
+  ssm:          [mamba x L]
+  hybrid:       [hyb_super x n_super (inner mamba + one SHARED attention
+                 + MLP block), mamba x trailing]
 
 Parameters are a plain dict with the reference's leaf names and layout, so
-one tree converts key for key (``repro_torch.convert``):
+one tree converts key for key (``repro_torch.convert``): embed (V, D),
+final_ln (D,), head (D, V) unless tied, and seg<i> per segment, each leaf
+stacked over layers as (L, ...); a hybrid super-block segment is
+{"mamba": (n_super, inner, ...) leaves, "attn": one unstacked dense layer}.
 
-  embed (V, D), final_ln (D,), head (D, V) unless tied, and
-  seg0 = {ln1, ln2, wq, wk, wv, wo, [bq, bk, bv], wg, wu, wd}, each leaf
-  stacked over layers as (L, ...).
-
-``prefill`` runs in the parameter dtype (bf16 for the paper's models), as
-the reference does; attention goes through kernel B2 and every norm
-through kernel B3 on CUDA. The staged-cache ``decode_step`` is not ported:
-the engine decodes through the paged kernel."""
+Entry points, as in the reference: ``prefill`` (full pass; last-position
+logits and the staged caches), ``decode_step`` (one token through every
+layer) and ``maybe_flush`` (recent -> big on every attention cache; the
+caller runs it every ``recent_window`` steps). Everything runs in the
+parameter dtype (bf16 for the paper's models). On CUDA attention prefill
+goes through kernel B2, every norm through B3 and every Mamba-2 prefill
+through B4; the staged decode is plain torch, as the reference's is jnp.
+MoE and cross-attention (VLM) families are not ported yet."""
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, Family, PosEmb
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.attention import self_attention_full
+from repro_torch.models.attention import (RECENT_WINDOW, AttnCache,
+                                          flush_cache, self_attention_decode,
+                                          self_attention_full)
 from repro_torch.models.common import gated_mlp, rms_norm, sinusoidal_pos
+from repro_torch.models.mamba2 import (MambaCache, make_mamba_cache,
+                                       mamba_block_decode, mamba_block_full)
 
-# leaf = (shape, scale); scale -1 -> ones, 0 -> zeros, else N(0, scale^2)
+# leaf = (shape, scale); scale -1 -> ones, 0 -> zeros, -2 -> log U[1, 16]
+# in fp32 (A_log), else N(0, scale^2)
 Leaf = Tuple[Tuple[int, ...], float]
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentSpec:
+    kind: str                      # dense | mamba | hyb_super
+    n: int                         # layers (or super-blocks)
+    inner: int = 1                 # mamba layers per super-block
 
 
 def _attn_leaves(arch: ArchConfig) -> Dict[str, Leaf]:
@@ -52,16 +75,59 @@ def _dense_layer_leaves(arch: ArchConfig) -> Dict[str, Leaf]:
     return out
 
 
+def _mamba_layer_leaves(arch: ArchConfig) -> Dict[str, Leaf]:
+    d = arch.d_model
+    s_cfg = arch.ssm
+    di = arch.d_inner
+    nh = arch.n_ssm_heads
+    gn = s_cfg.ngroups * s_cfg.d_state
+    s = 1.0 / math.sqrt(d)
+    return {"ln": ((d,), -1.0), "w_z": ((d, di), s), "w_x": ((d, di), s),
+            "w_bc": ((d, 2 * gn), s), "w_dt": ((d, nh), s),
+            "dt_bias": ((nh,), 0.0), "conv_wx": ((s_cfg.d_conv, di), 0.5),
+            "conv_bx": ((di,), 0.0), "conv_wbc": ((s_cfg.d_conv, 2 * gn), 0.5),
+            "conv_bbc": ((2 * gn,), 0.0), "A_log": ((nh,), -2.0),
+            "D": ((nh,), -1.0), "norm_w": ((di,), -1.0),
+            "w_out": ((di, d), 1.0 / math.sqrt(di))}
+
+
+def _stack(leaves: Dict[str, Leaf], *ns: int) -> Dict[str, Leaf]:
+    return {k: (tuple(ns) + shape, scale)
+            for k, (shape, scale) in leaves.items()}
+
+
+def _layer(seg: Dict[str, torch.Tensor], *idx: int) -> Dict[str, torch.Tensor]:
+    return {k: t[idx] for k, t in seg.items()}
+
+
 class LM:
-    def __init__(self, arch: ArchConfig, device: DeviceLike = None):
-        if arch.family not in (Family.DENSE, Family.AUDIO):
+    def __init__(self, arch: ArchConfig, device: DeviceLike = None,
+                 recent_window: int = RECENT_WINDOW):
+        if arch.family not in (Family.DENSE, Family.AUDIO, Family.SSM,
+                               Family.HYBRID):
             raise NotImplementedError(
-                "repro_torch ports the dense/audio LM only, not "
-                f"{arch.family.value}")
+                "repro_torch ports the dense, audio, SSM and hybrid LMs, "
+                f"not {arch.family.value}")
         self.arch = arch
         self.device = resolve_device(device)
+        self.recent_window = recent_window
         self.dtype = torch.bfloat16 if arch.param_dtype == "bfloat16" \
             else torch.float32
+        self.segments = self._build_segments()
+
+    def _build_segments(self) -> List[SegmentSpec]:
+        a = self.arch
+        if a.family in (Family.DENSE, Family.AUDIO):
+            return [SegmentSpec("dense", a.n_layers)]
+        if a.family == Family.SSM:
+            return [SegmentSpec("mamba", a.n_layers)]
+        per = a.attn_every
+        n_super = a.n_layers // per
+        trailing = a.n_layers - n_super * per
+        segs = [SegmentSpec("hyb_super", n_super, inner=per - 1)]
+        if trailing:
+            segs.append(SegmentSpec("mamba", trailing))
+        return segs
 
     # -- parameters ---------------------------------------------------------
     def param_template(self) -> Dict[str, object]:
@@ -71,15 +137,23 @@ class LM:
                                 "final_ln": ((d,), -1.0)}
         if not a.tie_embeddings:
             t["head"] = ((d, a.vocab), 1.0 / math.sqrt(d))
-        t["seg0"] = {k: ((a.n_layers,) + shape, scale)
-                     for k, (shape, scale) in _dense_layer_leaves(a).items()}
+        for i, seg in enumerate(self.segments):
+            if seg.kind == "dense":
+                t[f"seg{i}"] = _stack(_dense_layer_leaves(a), seg.n)
+            elif seg.kind == "mamba":
+                t[f"seg{i}"] = _stack(_mamba_layer_leaves(a), seg.n)
+            else:
+                t[f"seg{i}"] = {
+                    "mamba": _stack(_mamba_layer_leaves(a), seg.n, seg.inner),
+                    "attn": _dense_layer_leaves(a)}
         return t
 
     def init(self, generator: torch.Generator) -> Dict[str, object]:
         """Random weights as the reference's ``init`` draws them (normal
-        times the leaf's scale, ones for norms, zeros for biases), from
-        ``generator`` on the generator's device, stored on this model's
-        device in its dtype. Leaves are drawn in sorted key order."""
+        times the leaf's scale, ones for norms and D, zeros for biases,
+        log U[1, 16] in fp32 for A_log), from ``generator`` on the
+        generator's device, stored on this model's device in its dtype.
+        Leaves are drawn in sorted key order."""
         gdev = generator.device
 
         def make(shape, scale):
@@ -88,6 +162,10 @@ class LM:
             if scale == 0.0:
                 return torch.zeros(shape, dtype=self.dtype,
                                    device=self.device)
+            if scale == -2.0:
+                u = torch.rand(shape, generator=generator,
+                               dtype=torch.float32, device=gdev)
+                return torch.log(u * 15.0 + 1.0).to(self.device)
             t = torch.randn(shape, generator=generator, dtype=torch.float32,
                             device=gdev)
             return (t * scale).to(device=self.device, dtype=self.dtype)
@@ -97,41 +175,247 @@ class LM:
                     else make(*node[k]) for k in sorted(node)}
         return walk(self.param_template())
 
-    # -- prefill ------------------------------------------------------------
     def head_weight(self, params) -> torch.Tensor:
         if self.arch.tie_embeddings:
             return params["embed"].T
         return params["head"]
 
-    def prefill(self, params, tokens: torch.Tensor,
-                logit_pos: Optional[int] = None):
-        """tokens: (B, S) int64 -> (logits (B, V) fp32 at ``logit_pos``
-        (default: last), (k, v) each (L, B, S, Hkv, hd) in the param dtype).
-
-        ``logit_pos`` supports length-bucketed prefill: causal attention
-        makes tail padding inert for positions <= logit_pos."""
+    # -- layer bodies -------------------------------------------------------
+    def _dense_layer_full(self, x, p, positions):
         a = self.arch
-        x = params["embed"][tokens]
+        h = rms_norm(x, p["ln1"], a.norm_eps)
+        res, kv = self_attention_full(h, p, a, positions=positions,
+                                      return_kv=True)
+        x = x + res
+        h = rms_norm(x, p["ln2"], a.norm_eps)
+        return x + gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act), kv
+
+    def _dense_layer_decode(self, x, p, cache: AttnCache):
+        a = self.arch
+        h = rms_norm(x, p["ln1"], a.norm_eps)
+        res, cache = self_attention_decode(h, cache, p, a)
+        x = x + res
+        h = rms_norm(x, p["ln2"], a.norm_eps)
+        return x + gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act), cache
+
+    def _mamba_layer_full(self, x, p):
+        h = rms_norm(x, p["ln"], self.arch.norm_eps)
+        res, cache = mamba_block_full(h, p, self.arch, return_cache=True)
+        return x + res, cache
+
+    def _mamba_layer_decode(self, x, p, cache: MambaCache):
+        h = rms_norm(x, p["ln"], self.arch.norm_eps)
+        res, cache = mamba_block_decode(h, cache, p, self.arch)
+        return x + res, cache
+
+    # -- full-sequence forward ------------------------------------------------
+    def _embed_inputs(self, params, tokens=None, embeds=None):
+        a = self.arch
+        if embeds is None:
+            embeds = params["embed"][tokens]
+            if a.tie_embeddings:
+                embeds = embeds * math.sqrt(a.d_model)
+        x = embeds.to(self.dtype)
+        if a.pos_emb == PosEmb.SINUSOIDAL:
+            positions = torch.arange(x.shape[1], device=x.device)
+            x = x + sinusoidal_pos(positions, a.d_model).to(x.dtype)
+        return x
+
+    def _forward_full(self, params, x):
+        """x: (B, S, D) -> (final-normed hidden (B, S, D), per-segment raw
+        caches: (k, v) stacks, stacked MambaCaches, or both)."""
+        positions = torch.arange(x.shape[1], device=x.device)
+        caches = []
+        for i, seg in enumerate(self.segments):
+            p = params[f"seg{i}"]
+            if seg.kind == "dense":
+                ks, vs = [], []
+                for li in range(seg.n):
+                    x, (k, v) = self._dense_layer_full(x, _layer(p, li),
+                                                       positions)
+                    ks.append(k)
+                    vs.append(v)
+                caches.append((torch.stack(ks), torch.stack(vs)))
+            elif seg.kind == "mamba":
+                mcs = []
+                for li in range(seg.n):
+                    x, c = self._mamba_layer_full(x, _layer(p, li))
+                    mcs.append(c)
+                caches.append(MambaCache.stack(mcs))
+            else:
+                supers, ks, vs = [], [], []
+                for si in range(seg.n):
+                    inner = []
+                    for j in range(seg.inner):
+                        x, c = self._mamba_layer_full(
+                            x, _layer(p["mamba"], si, j))
+                        inner.append(c)
+                    supers.append(MambaCache.stack(inner))
+                    x, (k, v) = self._dense_layer_full(x, p["attn"],
+                                                       positions)
+                    ks.append(k)
+                    vs.append(v)
+                caches.append((MambaCache.stack(supers),
+                               (torch.stack(ks), torch.stack(vs))))
+        return rms_norm(x, params["final_ln"], self.arch.norm_eps), caches
+
+    # -- prefill ------------------------------------------------------------
+    def prefill(self, params, tokens: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None,
+                s_max: Optional[int] = None,
+                logit_pos: Optional[int] = None):
+        """tokens: (B, S) int64, or embeds: (B, S, D) (``Family.AUDIO``) ->
+        (logits (B, V) fp32 at ``logit_pos`` (default: last), cache).
+
+        The cache has one entry per segment: an attention dict {k_big,
+        v_big (L, B, s_max, Hkv, hd) padded from S, k_rec, v_rec (L, B, W,
+        Hkv, hd) zeros, big_len = S, rec_len = 0}, a stacked MambaCache, or
+        {"mamba", "attn"} for a hybrid super-block segment.
+
+        ``logit_pos`` supports length-bucketed prefill of attention-only
+        models (causal attention makes tail padding inert); tail padding
+        would enter an SSM's state, so SSM prompts are never padded."""
+        x = self._embed_inputs(params, tokens, embeds)
+        b, s, _ = x.shape
+        s_max = s_max or s
+        h, raw = self._forward_full(params, x)
+        pos = s - 1 if logit_pos is None else logit_pos
+        logits = h[:, pos].float() @ self.head_weight(params).float()
+        return logits, self._package_cache(raw, b, s, s_max)
+
+    def _attn_cache_from_kv(self, kv, b, s, s_max):
+        a = self.arch
+        k, v = (F.pad(t.to(self.dtype), (0, 0, 0, 0, 0, s_max - s))
+                for t in kv)                     # (..., B, s_max, Hkv, hd)
+        rec = k.shape[:-4] + (b, self.recent_window, a.n_kv_heads,
+                              a.resolved_head_dim)
+        return {"k_big": k, "v_big": v,
+                "k_rec": k.new_zeros(rec), "v_rec": k.new_zeros(rec),
+                "big_len": s, "rec_len": 0}
+
+    def _package_cache(self, raw, b, s, s_max):
+        out = []
+        for seg, c in zip(self.segments, raw):
+            if seg.kind == "dense":
+                out.append(self._attn_cache_from_kv(c, b, s, s_max))
+            elif seg.kind == "mamba":
+                out.append(c)
+            else:
+                mcs, kv = c
+                out.append({"mamba": mcs,
+                            "attn": self._attn_cache_from_kv(kv, b, s,
+                                                             s_max)})
+        return out
+
+    def init_cache(self, batch: int, s_max: int):
+        """Zero cache (fresh generation)."""
+        a = self.arch
+        hd = a.resolved_head_dim
+        dev = self.device
+
+        def attn_cache(*lead):
+            def z(n):
+                return torch.zeros(lead + (batch, n, a.n_kv_heads, hd),
+                                   dtype=self.dtype, device=dev)
+            return {"k_big": z(s_max), "v_big": z(s_max),
+                    "k_rec": z(self.recent_window),
+                    "v_rec": z(self.recent_window),
+                    "big_len": 0, "rec_len": 0}
+
+        def mamba_cache(*lead):
+            return make_mamba_cache(batch, a, dev).map(
+                lambda t: t.expand(lead + t.shape).clone())
+
+        out = []
+        for seg in self.segments:
+            if seg.kind == "dense":
+                out.append(attn_cache(seg.n))
+            elif seg.kind == "mamba":
+                out.append(mamba_cache(seg.n))
+            else:
+                out.append({"mamba": mamba_cache(seg.n, seg.inner),
+                            "attn": attn_cache(seg.n)})
+        return out
+
+    # -- decode -------------------------------------------------------------
+    @staticmethod
+    def _unpack_attn(c, idx=None) -> AttnCache:
+        def sel(t):
+            return t if idx is None else t[idx]
+        return AttnCache(k_big=sel(c["k_big"]), v_big=sel(c["v_big"]),
+                         k_recent=sel(c["k_rec"]), v_recent=sel(c["v_rec"]),
+                         big_len=c["big_len"], recent_len=c["rec_len"])
+
+    @staticmethod
+    def _appended(c, sites: List[AttnCache]):
+        """Stacked cache ``c`` after one decode step through ``sites``."""
+        return {**c, "k_rec": torch.stack([a.k_recent for a in sites]),
+                "v_rec": torch.stack([a.v_recent for a in sites]),
+                "rec_len": c["rec_len"] + 1}
+
+    def decode_step(self, params, cache, tokens: torch.Tensor):
+        """tokens: (B,) int64 -> (logits (B, V) fp32, new cache). The input
+        cache is left as it was."""
+        a = self.arch
+        x = params["embed"][tokens].to(self.dtype)
         if a.tie_embeddings:
             x = x * math.sqrt(a.d_model)
-        x = x.to(self.dtype)
-        s = x.shape[1]
-        positions = torch.arange(s, device=x.device)
         if a.pos_emb == PosEmb.SINUSOIDAL:
-            x = x + sinusoidal_pos(positions, a.d_model).to(x.dtype)
-        seg = params["seg0"]
-        ks, vs = [], []
-        for i in range(a.n_layers):
-            p = {k: t[i] for k, t in seg.items()}
-            h = rms_norm(x, p["ln1"], a.norm_eps)
-            res, (k, v) = self_attention_full(h, p, a, positions=positions,
-                                              return_kv=True)
-            ks.append(k)
-            vs.append(v)
-            x = x + res
-            h = rms_norm(x, p["ln2"], a.norm_eps)
-            x = x + gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act)
+            c0 = cache[0]
+            pos = torch.tensor([c0["big_len"] + c0["rec_len"]],
+                               device=x.device)
+            x = x + sinusoidal_pos(pos, a.d_model)[0].to(x.dtype)
+        new_cache = []
+        for i, seg in enumerate(self.segments):
+            p, c = params[f"seg{i}"], cache[i]
+            if seg.kind == "dense":
+                sites = []
+                for li in range(seg.n):
+                    x, ac = self._dense_layer_decode(
+                        x, _layer(p, li), self._unpack_attn(c, li))
+                    sites.append(ac)
+                new_cache.append(self._appended(c, sites))
+            elif seg.kind == "mamba":
+                ncs = []
+                for li in range(seg.n):
+                    x, m = self._mamba_layer_decode(
+                        x, _layer(p, li), c.map(lambda t: t[li]))
+                    ncs.append(m)
+                new_cache.append(MambaCache.stack(ncs))
+            else:
+                supers, sites = [], []
+                for si in range(seg.n):
+                    inner = []
+                    for j in range(seg.inner):
+                        x, m = self._mamba_layer_decode(
+                            x, _layer(p["mamba"], si, j),
+                            c["mamba"].map(lambda t: t[si, j]))
+                        inner.append(m)
+                    supers.append(MambaCache.stack(inner))
+                    x, ac = self._dense_layer_decode(
+                        x, p["attn"], self._unpack_attn(c["attn"], si))
+                    sites.append(ac)
+                new_cache.append({"mamba": MambaCache.stack(supers),
+                                  "attn": self._appended(c["attn"], sites)})
         x = rms_norm(x, params["final_ln"], a.norm_eps)
-        pos = s - 1 if logit_pos is None else logit_pos
-        logits = x[:, pos].float() @ self.head_weight(params).float()
-        return logits, (torch.stack(ks), torch.stack(vs))
+        return x.float() @ self.head_weight(params).float(), new_cache
+
+    def maybe_flush(self, cache):
+        """Flush recent -> big on every attention cache (run it every
+        ``recent_window`` decode steps, before the buffer overflows)."""
+        def flush_attn(c):
+            nc = flush_cache(self._unpack_attn(c))
+            return {"k_big": nc.k_big, "v_big": nc.v_big,
+                    "k_rec": nc.k_recent, "v_rec": nc.v_recent,
+                    "big_len": nc.big_len, "rec_len": nc.recent_len}
+
+        out = []
+        for seg, c in zip(self.segments, cache):
+            if seg.kind == "dense":
+                out.append(flush_attn(c))
+            elif seg.kind == "mamba":
+                out.append(c)
+            else:
+                out.append({"mamba": c["mamba"],
+                            "attn": flush_attn(c["attn"])})
+        return out

@@ -332,9 +332,10 @@ class PagedEngine:
         else:
             bucket = max(8, 1 << (s - 1).bit_length())  # pow-2 length buckets
             padded = toks + [0] * (bucket - s)
-            logits, (ks, vs) = self.model.prefill(
+            logits, cache = self.model.prefill(
                 self.params, self._tensor([padded], torch.long),
                 logit_pos=s - 1)
+            ks, vs = cache[0]["k_big"], cache[0]["v_big"]
             self._write_kv(slot, 0, ks[:, 0, :s], vs[:, 0, :s])
         self.lengths[slot] = s
         req.tokens.append(int(logits.argmax(dim=-1).item()))

@@ -89,6 +89,8 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LM(arch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        LM(reduced(get_arch("mamba2-1.3b")))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         PagedEngine(arch, params, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingCluster(arch, params, SLO(1.0, 1.0), engine_cfg=cfg)

@@ -22,6 +22,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_dense_ref, flash_attention, flash_attention_ref)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_ref  # noqa: E402
 
 _TORCH_DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -163,6 +164,13 @@ def test_cpu_tensors_never_build(monkeypatch):
     ln = torch.tensor([5], dtype=torch.int32)
     assert torch.equal(paged_decode_attention(q[:, 0], pages, pages, bt, ln),
                        paged_decode_ref(q[:, 0], pages, pages, bt, ln))
+    x = torch.from_numpy(rng.standard_normal((1, 5, 2, 8))).float()
+    dt = torch.full((1, 5, 2), 0.05)
+    bm = torch.from_numpy(rng.standard_normal((1, 5, 1, 4))).float()
+    a = -torch.ones(2)
+    for got, want in zip(ssd_scan(x, dt, a, bm, bm, a, chunk=4),
+                         ssd_ref(x, dt, a, bm, bm, a)):
+        assert torch.equal(got, want)
 
 
 def test_non_cpu_non_cuda_tensor_raises():
@@ -177,3 +185,60 @@ def test_non_cpu_non_cuda_tensor_raises():
         paged_decode_attention(q[:, 0], q, q,
                                torch.empty((1, 1), dtype=torch.int32),
                                torch.empty((1,), dtype=torch.int32))
+    h = torch.empty((2,), device="meta")
+    with pytest.raises(ValueError):
+        ssd_scan(torch.empty((1, 8, 2, 16), device="meta"),
+                 torch.empty((1, 8, 2), device="meta"), h,
+                 torch.empty((1, 8, 1, 16), device="meta"),
+                 torch.empty((1, 8, 1, 16), device="meta"), h)
+
+
+def test_flash_head_dim_112_matches_pallas():
+    """zamba2-7b's shared attention block has heads of 112 (3584 / 32)."""
+    rng = np.random.default_rng(7)
+    qj, qt = _pair(rng, (2, 64, 4, 112), jnp.bfloat16)
+    kj, kt = _pair(rng, (2, 64, 4, 112), jnp.bfloat16)
+    vj, vt = _pair(rng, (2, 64, 4, 112), jnp.bfloat16)
+    got = flash_attention(qt, kt, vt, causal=True)
+    _close(got, flash_attention_pallas(qj, kj, vj, causal=True, block_q=32,
+                                       block_k=32, interpret=True),
+           jnp.bfloat16)
+    _close(got, jax_dense_ref(qj, kj, vj, causal=True), jnp.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("kv_chunk", [64, 48])
+def test_flash_fully_masked_row_matches_oracle(dtype, kv_chunk):
+    """A sequence with kv_len 0 sees no key: the plain versions (chunked,
+    and dense when Skv is not a multiple of the chunk) give what the jnp
+    oracles give, the mean of V over all Skv keys. The CUDA kernel is held
+    to the same answer on the card."""
+    rng = np.random.default_rng(5)
+    qj, qt = _pair(rng, (2, 16, 4, 32), dtype)
+    kj, kt = _pair(rng, (2, 128, 2, 32), dtype)
+    vj, vt = _pair(rng, (2, 128, 2, 32), dtype)
+    kvlen = np.array([0, 100], np.int32)
+    got = flash_attention(qt, kt, vt, causal=True, q_offset=100,
+                          kv_len=torch.from_numpy(kvlen), kv_chunk=kv_chunk)
+    _close(got, jax_flash_ref(qj, kj, vj, causal=True, q_offset=100,
+                              kv_len=jnp.asarray(kvlen), kv_chunk=kv_chunk),
+           dtype)
+    mean_v = vt[0].float().mean(dim=0)                   # (Hkv, D)
+    want = mean_v.repeat_interleave(2, dim=0)[None].expand(16, 4, 32)
+    _close(got[0], want.to(qt.dtype).float(), dtype)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_paged_decode_fully_masked_row_matches_oracle(dtype):
+    """lengths[b] == 0: the mean of V over every gathered position, as the
+    jnp oracle computes it."""
+    rng = np.random.default_rng(6)
+    qj, qt = _pair(rng, (3, 8, 64), dtype)
+    kj, kt = _pair(rng, (16, 8, 2, 64), dtype)
+    vj, vt = _pair(rng, (16, 8, 2, 64), dtype)
+    bt = rng.integers(0, 16, (3, 4)).astype(np.int32)
+    lengths = np.array([0, 9, 32], np.int32)
+    got = paged_decode_attention(qt, kt, vt, torch.from_numpy(bt),
+                                 torch.from_numpy(lengths))
+    _close(got, jax_paged_ref(qj, kj, vj, jnp.asarray(bt),
+                              jnp.asarray(lengths)), dtype)
