@@ -14,10 +14,17 @@
    against its plain PyTorch version on the same inputs (allclose, rtol =
    atol = 2e-5 in fp32 and 2e-2 in bf16), and is timed with CUDA
    events beside its plain version, a PyTorch library call computing the
-   same function where one exists, and its bound: the larger of the bytes
-   it must move over 3.35 TB/s and its operations over the peak rate of
-   their type (989 TFLOP/s bf16 tensor core, 67 TFLOP/s fp32), the H100
-   SXM datasheet figures. B1 and B2 are also held against their plain
+   same function where one exists (for B2, SDPA: causal, or with a
+   boolean mask built outside the timed call for a q_offset and kv_len),
+   and its bound; the kernel's and the library call's device time per call
+   from torch.profiler, or from CUDA events around calls queued behind a
+   spin kernel where the profiler misses the kernel (``device_ms``), beside
+   the host-loop times, so a launch-bound case shows as one. The bound is
+   the larger of the bytes it must move over 3.35 TB/s and its operations
+   over the peak rate of their type (989 TFLOP/s bf16 tensor core, 67
+   TFLOP/s fp32), the H100 SXM datasheet figures. B2 runs every prefill bucket (64-1024), GQA
+   32/8, D = 64, 112 (B=2) and 128, a ragged Sq and a q_offset/kv_len cut
+   mid-tile in bf16 and fp32. B1 and B2 are also held against their plain
    versions on rows that see no key (the mean of V).
 4. Small reference check: the port's engine on the card and on the CPU
    (plain versions) generate the same tokens for a reduced fp32 model,
@@ -92,6 +99,10 @@ SOURCES = {
     "rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
     "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
 }
+# the port's kernels by a stem of their device function names
+PORT_KERNELS = {"paged_decode_attention": "paged_decode_kernel",
+                "flash_attention": "flash_fwd_", "rmsnorm": "rmsnorm_kernel",
+                "ssd_scan": "ssd_scan_kernel"}
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)     # SSD final state, as the
                                            # reference's test_ssd_sweep
 
@@ -111,13 +122,14 @@ def bound(nbytes: float, ops: dict):
 
 
 def record(cases, kernel, case, kind, err, k_ms, p_ms, l_ms, nbytes, ops,
-           tol=None) -> None:
-    """Append one kernel-phase case to ``cases`` and log it."""
+           tol=None, dev=(None, None)) -> None:
+    """Append one kernel-phase case to ``cases`` and log it. ``dev`` holds
+    the device time per call of the kernel and of the library call."""
     b_ms, b_by = bound(nbytes, ops)
     row = {"kernel": kernel, "case": case, "dtype": kind,
            "max_abs_err": err, "tol": tol or TOL[kind], "kernel_ms": k_ms,
-           "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-           "bound_by": b_by}
+           "device_ms": dev[0], "plain_ms": p_ms, "library_ms": l_ms,
+           "library_device_ms": dev[1], "bound_ms": b_ms, "bound_by": b_by}
     cases.append(row)
     log(json.dumps(row))
 
@@ -147,6 +159,75 @@ class Timer:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, n: int = 20, stem: str | None = None) -> float:
+    """Device time per call of ``fn``; unlike the host-clock ``Timer``,
+    launch and wrapper overhead on the host do not count.
+
+    From torch.profiler over ``n`` calls after a warm-up: for each device
+    operation, its mean time a launch times its launches a call (at least
+    one, so a launch the profiler missed does not shrink the sum). The
+    reading is kept only if the profiler saw device time and, where
+    ``stem`` names the port's kernel, at least ``n`` launches of a kernel
+    of that name. Otherwise (some profilers drop kernels, or trace no
+    device at all) the time comes from ``queued_ms``, and a line says so.
+    """
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total, seen = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count \
+                and e.self_device_time_total > 0:
+            total += e.self_device_time_total / e.count / 1e3 \
+                * max(1, round(e.count / n))
+            if stem is not None and stem in e.key:
+                seen += e.count
+    if total and (stem is None or seen >= n):
+        return total
+    ms = queued_ms(torch, fn, n)
+    log(f"[timing] the profiler saw {seen} of {n} launches of "
+        f"{stem or 'any kernel'} ({total:.4g} ms a call); device time from "
+        f"queued CUDA events instead: {ms:.4g} ms a call")
+    return ms
+
+
+def queued_ms(torch, fn, n: int = 20) -> float:
+    """Device time per call of ``fn`` from CUDA events around ``n`` calls
+    queued behind a spin kernel (``torch.cuda._sleep``) that outlasts
+    their launches on the host, so that the device runs them back to back:
+    host overhead does not count, the gaps between launches on the device
+    do. The spin is sized from one synchronous call on the host clock
+    (assuming a clock of at most 2 GHz), and lengthened until the start
+    event is still pending once the last call is queued."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once_ms = (time.perf_counter() - t0) * 1e3
+    cycles = int(2 * n * once_ms * 2e6) + 2_000_000
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        pending = not start.query()
+        torch.cuda.synchronize()
+        if pending:
+            return start.elapsed_time(end) / n
+        cycles *= 4
+    raise AssertionError("queued_ms: the spin kernel never outlasted the "
+                         "launches")
 
 
 def check_close(torch, got, want, kind: str, what: str,
@@ -188,18 +269,25 @@ def kernel_phases(torch, F, timer):
             err = check_close(torch, rmsnorm(x, w, r, eps=1e-5),
                               rmsnorm_ref(x, w, r, 1e-5), kind,
                               f"rmsnorm {rows}x{d} {kind}")
-            k_ms = timer(lambda: rmsnorm(x, w, r, eps=1e-5))
+
+            def kern():
+                return rmsnorm(x, w, r, eps=1e-5)
+            k_ms = timer(kern)
             p_ms = timer(lambda: rmsnorm_ref(x, w, r, 1e-5))
-            l_ms = None
+            l_ms = l_dev = None
             if r is None and dt == w.dtype:
-                l_ms = timer(lambda: F.rms_norm(x, (d,), w, 1e-5))
+                def lib():
+                    return F.rms_norm(x, (d,), w, 1e-5)
+                l_ms, l_dev = timer(lib), device_ms(torch, lib)
             n_in = rows * d * (2 if with_res else 1)
             nbytes = (n_in + rows * d) * x.element_size() \
                 + d * w.element_size()
             flops = rows * d * (4 + (1 if with_res else 0))
             record(cases, "rmsnorm",
                    f"{rows}x{d}{' +residual' if with_res else ''}", kind, err,
-                   k_ms, p_ms, l_ms, nbytes, {kind: flops})
+                   k_ms, p_ms, l_ms, nbytes, {kind: flops},
+                   dev=(device_ms(torch, kern,
+                                  stem=PORT_KERNELS["rmsnorm"]), l_dev))
 
     # ---- B2 flash attention: prefill buckets in bf16, chunked in fp32 -----
     def attn_pairs(sq, skv, q_offset, kv_hi):
@@ -223,14 +311,23 @@ def kernel_phases(torch, F, timer):
                 return flash_attention_ref(q, k, v, causal=True,
                                            q_offset=q_offset, kv_len=kl)
             err = check_close(torch, kern(), plain(), kind,
-                              f"flash {sq}x{skv} {hq}/{hkv} {kind}")
-            l_ms = None
-            if q_offset == 0 and kv_len is None and sq == skv:
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                gqa = {"enable_gqa": True} if hq != hkv else {}
-                l_ms = timer(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, **gqa))
+                              f"flash B={b} {sq}x{skv} {hq}/{hkv} D={hd} "
+                              f"{kind}")
+            # SDPA as the yardstick: causal, or with a boolean mask built
+            # here, outside the timed call, for a q_offset or kv_len
             kv_hi = skv if kv_len is None else kv_len
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa_kw = {"enable_gqa": True} if hq != hkv else {}
+            if q_offset == 0 and kv_len is None and sq == skv:
+                sdpa_kw["is_causal"] = True
+            else:
+                qpos = torch.arange(sq, device=dev)[:, None] + q_offset
+                kpos = torch.arange(skv, device=dev)[None, :]
+                sdpa_kw["attn_mask"] = (kpos <= qpos) & (kpos < kv_hi)
+
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+            l_ms, l_dev = timer(lib), device_ms(torch, lib)
             pairs = attn_pairs(sq, skv, q_offset, kv_hi)
             esz = q.element_size()
             nbytes = b * (2 * sq * hq * hd + 2 * kv_hi * hkv * hd) * esz
@@ -238,7 +335,10 @@ def kernel_phases(torch, F, timer):
             case = f"B={b} Sq={sq} Skv={skv} H={hq}/{hkv} D={hd}" + (
                 f" q_offset={q_offset} kv_len={kv_len}" if q_offset else "")
             record(cases, "flash_attention", case, kind, err, timer(kern),
-                   timer(plain), l_ms, nbytes, {kind: flops})
+                   timer(plain), l_ms, nbytes, {kind: flops},
+                   dev=(device_ms(torch, kern,
+                                  stem=PORT_KERNELS["flash_attention"]),
+                        l_dev))
 
     # The llama2-7b shapes come first and in a fixed order: the seeded draws
     # before B1 decide its lengths, so its timed case stays the same from
@@ -277,7 +377,10 @@ def kernel_phases(torch, F, timer):
             torch, paged_decode_attention(q, kp, vp, bt, lengths),
             paged_decode_ref(q, kp, vp, bt, lengths), kind,
             f"paged decode B={b} {hq}/{hkv} {kind}")
-        k_ms = timer(lambda: paged_decode_attention(q, kp, vp, bt, lengths))
+
+        def kern():
+            return paged_decode_attention(q, kp, vp, bt, lengths)
+        k_ms = timer(kern)
         p_ms = timer(lambda: paged_decode_ref(q, kp, vp, bt, lengths))
         toks = float(lengths.sum())
         esz = q.element_size()
@@ -287,14 +390,21 @@ def kernel_phases(torch, F, timer):
         record(cases, "paged_decode_attention",
                f"B={b} H={hq}/{hkv} D={hd} page={page} max_pages={max_pages}"
                f" lengths<={max_pages * page}", kind, err, k_ms, p_ms, None,
-               nbytes, {kind: flops})
+               nbytes, {kind: flops},
+               dev=(device_ms(torch, kern,
+                              stem=PORT_KERNELS["paged_decode_attention"]),
+                    None))
 
     # mamba2-1.3b (d 2048: 4 x 2048 prefill rows, batch-4 decode rows) and
     # zamba2-7b (d 3584: 2 x 1024 prefill rows, batch-2 decode rows; its
-    # attention heads of 112)
+    # attention heads of 112); then B2 at the edges of its tiling: a ragged
+    # Sq, D = 64, and the 64-token bucket (one 64-row tile a head)
     rmsnorm_cases(((8192, 2048, "bf16", False), (4, 2048, "bf16", False),
                    (2048, 3584, "bf16", False), (2, 3584, "bf16", False)))
-    flash_cases(((2, 1024, 1024, 32, 32, 112, "bf16", 0, None),))
+    flash_cases(((2, 1024, 1024, 32, 32, 112, "bf16", 0, None),
+                 (2, 1000, 1000, 32, 32, 112, "bf16", 0, None),
+                 (1, 512, 512, 16, 16, 64, "bf16", 0, None),
+                 (1, 64, 64, 32, 32, 128, "bf16", 0, None)))
 
     # ---- fully masked rows (C7): no visible key -> mean of V, as the plain
     # versions softmax all -1e30 logits to uniform weights ----------------
@@ -385,7 +495,9 @@ def ssd_kernel_phase(torch, timer):
                f"B={b} S={s} H={h} P={p} G={g} N={n} Q={q}"
                + (" init" if init else ""), kind, err, timer(kern),
                timer(plain), None, nbytes, ops,
-               tol={"y": TOL[kind], "state": STATE_TOL})
+               tol={"y": TOL[kind], "state": STATE_TOL},
+               dev=(device_ms(torch, kern, n=5,
+                                   stem=PORT_KERNELS["ssd_scan"]), None))
     return cases
 
 
@@ -571,9 +683,11 @@ def _summary(profile, wall_ms):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     if not busy:
         log("[breakdown] the profiler recorded no device time")
+    port = {name: sum(v for k, v in by_name.items() if stem in k)
+            for name, stem in PORT_KERNELS.items()}
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": (1 - busy / wall_ms) if busy else None,
-            "device_ops": ops,
+            "device_ops": ops, "port_kernels_ms": port,
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 
@@ -828,7 +942,8 @@ def main() -> int:
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f}s "
         f"(nvcc {_build.build_seconds()})")
     for line in _build.ptxas_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(w in line for w in ("registers", "spill", "==",
+                                   "Function properties", "arning")):
             log("[build] " + line.strip())
 
     timer = Timer(torch)
@@ -870,7 +985,8 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases
                                if c["kernel"] == name),
-            "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
+            "ms": rep["kernel_ms"], "device_ms": rep["device_ms"],
+            "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"], "at": rep["case"],
             "dtype": rep["dtype"]})

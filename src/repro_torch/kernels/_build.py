@@ -3,10 +3,13 @@
 Every ``kernels/**/csrc/*.cu`` file has a plain C interface. At first use
 each source is compiled by its own ``nvcc`` process (all started together),
 the objects are linked into one shared library under ``kernels/_build/``
-(named by a hash of the sources and flags, so an edit rebuilds), and the
-library is loaded with ``ctypes``. Pointers and the CUDA stream cross the
-boundary as ``c_void_p``; every entry point returns ``cudaGetLastError()``
-and :func:`check` raises when it is not 0.
+(named by a hash of the sources, every ``kernels/**/csrc/*.cuh`` header and
+the flags, so an edit to any of them rebuilds), and the library is loaded
+with ``ctypes``. It links only the CUDA runtime: the one driver function a
+kernel needs (``cuTensorMapEncodeTiled``, for B2's TMA tensor maps) is
+reached through ``cudaGetDriverEntryPoint``. Pointers and the CUDA stream
+cross the boundary as ``c_void_p``; every entry point returns
+``cudaGetLastError()`` and :func:`check` raises when it is not 0.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines without ``nvcc``.
@@ -25,7 +28,6 @@ from typing import Dict, List, Optional, Sequence
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "_build"
-INCLUDE_DIR = KERNELS_DIR / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -41,8 +43,18 @@ class _State:
 _state = _State()
 
 
-def sources() -> List[Path]:
-    return sorted(KERNELS_DIR.glob("**/csrc/*.cu"))
+def sources(root: Path = KERNELS_DIR) -> List[Path]:
+    return sorted(root.glob("**/csrc/*.cu"))
+
+
+def headers(root: Path = KERNELS_DIR) -> List[Path]:
+    return sorted(root.glob("**/csrc/*.cuh"))
+
+
+def include_flags(root: Path = KERNELS_DIR) -> List[str]:
+    """``-I`` for every directory that holds a header."""
+    dirs = sorted({h.parent for h in headers(root)})
+    return [f for d in dirs for f in ("-I", str(d))]
 
 
 def _nvcc() -> str:
@@ -59,10 +71,12 @@ def _nvcc() -> str:
                        "use")
 
 
-def _digest(srcs: Sequence[Path], flags: Sequence[str]) -> str:
+def _digest(flags: Sequence[str], root: Path = KERNELS_DIR) -> str:
+    """Hash of the flags and of every source and header under ``root``,
+    each with its path relative to ``root``."""
     h = hashlib.sha256(" ".join(flags).encode())
-    for p in srcs + sorted(INCLUDE_DIR.glob("*.cuh")):
-        h.update(p.name.encode())
+    for p in sources(root) + headers(root):
+        h.update(p.relative_to(root).as_posix().encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
@@ -71,7 +85,7 @@ def build() -> Path:
     """Compile (if needed) and return the shared library's path. ptxas's
     register and spill report of a fresh build is kept in ``ptxas_log``."""
     srcs = sources()
-    lib_path = BUILD_DIR / f"libreprotorch_{_digest(srcs, NVCC_FLAGS)}.so"
+    lib_path = BUILD_DIR / f"libreprotorch_{_digest(NVCC_FLAGS)}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -81,8 +95,8 @@ def build() -> Path:
     objs, procs = [], []
     for src in srcs:
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-c", str(src),
-               "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, *include_flags(), "-c", str(src), "-o",
+               str(obj)]
         procs.append((src, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -6,7 +6,8 @@ oracle (``repro.kernels.flash_attention.ref``): KV chunks of ``kv_chunk``
 with an fp32 running softmax, and ``p`` cast to ``v``'s type before
 ``p @ v``, so bf16 rounding matches the JAX prefill path. A CPU tensor goes
 to it; a CUDA tensor goes to the kernel in ``csrc/flash_attention.cu`` or
-raises."""
+raises. On the card the bf16 kernel's q tile and launch order are chosen
+here (``launch_plan``), where the CPU tests can reach them."""
 from __future__ import annotations
 
 import ctypes
@@ -19,7 +20,36 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+N_SMS = 132                          # H100 SXM
+
+
+def launch_plan(b: int, sq: int, hq: int):
+    """The bf16 kernel's q tile and tile count for q (b, sq, hq, D): 128
+    rows (two consumer warpgroups a CTA, one CTA an SM) while that still
+    gives a tile for every SM, else 64 rows (one warpgroup, two CTAs an
+    SM), which doubles the tiles. The kernel's CTAs, one for each resident
+    slot of the card, walk the tiles in ``tile_rows`` order."""
+    for block_q in (128, 64):
+        n_tiles = hq * -(-sq // block_q) * b
+        if block_q == 64 or n_tiles >= N_SMS:
+            return block_q, n_tiles
+
+
+def tile_rows(b: int, sq: int, hq: int):
+    """(batch, head, first q row, rows) of each tile in the kernel's order
+    (its ``tile_at``): every (head, batch) at the last q tile, then at the
+    one before it, and so on, so under causal masking the heaviest tiles
+    come first. The kernel deals them to its CTAs a round at a time, in
+    snake order."""
+    block_q, n_tiles = launch_plan(b, sq, hq)
+    n_qt = -(-sq // block_q)
+    out = []
+    for tile in range(n_tiles):
+        hb = tile % (hq * b)
+        q0 = (n_qt - 1 - tile // (hq * b)) * block_q
+        out.append((hb // hq, hb % hq, q0, min(block_q, sq - q0)))
+    return out
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -131,6 +161,10 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; one of {_DTYPES} expected")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and skv == 0:
+        raise ValueError("flash_attention: bf16 needs Skv >= 1 (its TMA "
+                         "tensor maps have no empty dimension)")
     if d not in (64, 128) and not (d == 112 and q.dtype == torch.bfloat16):
         raise ValueError(f"flash_attention: head dim {d} not in (64, 128), "
                          "or 112 in bf16")
@@ -140,7 +174,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                          "one device")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
-                         "(whole-row vector loads)")
+                         "(TMA and whole-row vector loads)")
     if kv_len is not None and (kv_len.dtype != torch.int32
                                or kv_len.shape != (b,)
                                or kv_len.device != q.device
@@ -151,13 +185,13 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     out = torch.empty_like(q)
+    block_q = launch_plan(b, sq, hq)[0] if bf16 else 64
     fn = _build.function("flash_attention_launch", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if kv_len is None else kv_len.data_ptr(),
              b, sq, skv, hq, hkv, d, q_offset, int(causal),
-             float(scale if scale is not None else d ** -0.5),
-             int(q.dtype == torch.bfloat16),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             float(scale if scale is not None else d ** -0.5), block_q,
+             int(bf16), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
@@ -165,4 +199,5 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 flash_attention.launches = 0
 
-__all__ = ["flash_attention", "flash_attention_ref", "attention_dense_ref"]
+__all__ = ["flash_attention", "flash_attention_ref", "attention_dense_ref",
+           "launch_plan", "tile_rows"]

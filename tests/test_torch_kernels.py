@@ -21,6 +21,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_dense_ref, flash_attention, flash_attention_ref)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    launch_plan, tile_rows)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_ref  # noqa: E402
 
@@ -242,3 +244,69 @@ def test_paged_decode_fully_masked_row_matches_oracle(dtype):
                                  torch.from_numpy(lengths))
     _close(got, jax_paged_ref(qj, kj, vj, jnp.asarray(bt),
                               jnp.asarray(lengths)), dtype)
+
+
+def test_build_digest_covers_every_kernel_header(tmp_path):
+    """A header beside one kernel (``<kernel>/csrc/*.cuh``), not only the
+    shared ``kernels/csrc`` ones, names the library: adding or editing one
+    rebuilds it, and its directory is on the include path. No nvcc
+    needed."""
+    import shutil
+    root = tmp_path / "kernels"
+    shutil.copytree(_build.KERNELS_DIR, root,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    flags = _build.NVCC_FLAGS
+    before = _build._digest(flags, root)
+    assert _build._digest(flags, root) == before
+    assert str(root / "flash_attention" / "csrc") in \
+        _build.include_flags(root)
+    new = root / "flash_attention" / "csrc" / "extra.cuh"
+    new.write_text("#pragma once\n")
+    added = _build._digest(flags, root)
+    assert added != before
+    new.write_text("#pragma once\n// edited\n")
+    assert _build._digest(flags, root) not in (before, added)
+    new.unlink()
+    assert _build._digest(flags, root) == before
+    shared = root / "csrc" / "common.cuh"
+    shared.write_text(shared.read_text() + "\n")
+    assert _build._digest(flags, root) != before
+
+
+@pytest.mark.parametrize("b,sq,hq,block_q,tiles", [
+    (1, 64, 32, 64, 32),          # llama2-7b buckets, 32 heads
+    (1, 128, 32, 64, 64),
+    (1, 512, 32, 64, 256),
+    (1, 1024, 32, 128, 256),
+    (2, 1024, 32, 128, 512),      # zamba2-7b, B=2
+    (2, 1000, 32, 128, 512),      # ragged Sq
+    (1, 512, 16, 64, 128),        # D=64 case, 16 heads
+])
+def test_flash_launch_plan(b, sq, hq, block_q, tiles):
+    """The bf16 kernel takes 128-row q tiles only while that still gives a
+    tile for every SM of the H100; otherwise 64 rows (two CTAs an SM). At
+    the 512 and 1024 buckets the tiles fill the 132 SMs; at 128 tokens the
+    32 heads give 64 tiles of 64 rows, the most a 64-row warpgroup tile
+    allows without splitting the keys."""
+    assert launch_plan(b, sq, hq) == (block_q, tiles)
+    assert tiles == hq * -(-sq // block_q) * b
+    if hq == 32 and sq >= 512:            # llama2-7b and zamba2-7b
+        assert tiles >= 132
+
+
+@pytest.mark.parametrize("sq", [64, 128, 1000, 1024])
+@pytest.mark.parametrize("b,hq", [(1, 32), (2, 32), (1, 8)])
+def test_flash_tiles_cover_rows_once_heaviest_first(b, sq, hq):
+    """Every q row of every (batch, head) is covered by exactly one tile,
+    and the tiles are taken in order of falling causal work (a q tile's
+    last row bounds the keys it reads)."""
+    tiles = tile_rows(b, sq, hq)
+    seen = {}
+    for z, h, r0, n in tiles:
+        assert n > 0
+        for r in range(r0, r0 + n):
+            seen[(z, h, r)] = seen.get((z, h, r), 0) + 1
+    assert set(seen.values()) == {1}
+    assert len(seen) == b * hq * sq
+    ends = [r0 + n for _, _, r0, n in tiles]
+    assert ends == sorted(ends, reverse=True)
