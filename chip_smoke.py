@@ -25,7 +25,11 @@
    TFLOP/s fp32), the H100 SXM datasheet figures. B2 runs every prefill bucket (64-1024), GQA
    32/8, D = 64, 112 (B=2) and 128, a ragged Sq and a q_offset/kv_len cut
    mid-tile in bf16 and fp32. B1 and B2 are also held against their plain
-   versions on rows that see no key (the mean of V).
+   versions on rows that see no key (the mean of V). B3's wrapper must
+   refuse each of a list of bad CUDA inputs with its earlier error type,
+   and a line per bf16 shape splits its host time per call (checks,
+   stream, allocation, launch; each beside what it replaced) beside
+   ``F.rms_norm``'s.
 4. Small reference check: the port's engine on the card and on the CPU
    (plain versions) generate the same tokens for a reduced fp32 model,
    one-shot and chunked prefill.
@@ -44,10 +48,12 @@
    count of device operations from torch.profiler. The llama2-7b weights
    are then freed.
 7. B4 (Mamba-2 SSD scan) kernel phase at the mamba2-1.3b and zamba2-7b
-   prefill shapes (ragged S in fp32 and bf16 and a two-group case among
-   them), held against its plain version (y at the tolerances above, the
-   final state at 1e-3) and timed beside it; its bound counts C B^T at the
-   rate of the input type and the rest at the fp32 rate.
+   prefill shapes (ragged S in fp32 and bf16, a two-group case and batch
+   1 in bf16 among them), held against its plain version (y at the
+   tolerances above, the final state at 1e-3) and timed beside it, with a
+   line of each pass's device time; its bound (``ssd_bound_work``) counts
+   the three-pass kernel's least work, and a device time under it
+   raises.
 8. Generation reference check: reduced fp32 mamba2-1.3b and zamba2-7b
    generate (prefill, 12 greedy decode steps, flushes every 8) with the
    same tokens on the card and on the CPU.
@@ -246,6 +252,93 @@ def check_close(torch, got, want, kind: str, what: str,
     return err
 
 
+def host_us(torch, fn, n: int = 200) -> float:
+    """Host time per call (us) of ``fn`` queued ``n`` times without a
+    synchronise: what the calling thread spends, not the device. ``n``
+    stays under the launch queue's depth, so the loop never waits for the
+    card."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def rmsnorm_host_split(torch, F, x, w) -> None:
+    """Log where B3's wrapper spends its host time, in us per call (the
+    least of 5 loops of 200 calls): the checks, reading the stream (raw handle, and through a
+    torch.cuda.Stream object as before), the allocation, and the launch
+    through the CPython binding (and through ctypes as before), beside the
+    whole wrapper and F.rms_norm."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import ops
+    rows, d = x.shape
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x.data_ptr(), None, w.data_ptr(), y.data_ptr(), rows, d, 1e-5,
+            x.dtype is torch.bfloat16, w.dtype is torch.bfloat16, stream)
+    by_ctypes = _build.function("rmsnorm_launch", [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p])
+    ext = _build.module()
+    split = {
+        "wrapper": host_us(torch, lambda: ops.rmsnorm(x, w, eps=1e-5)),
+        "F.rms_norm": host_us(torch, lambda: F.rms_norm(x, (d,), w, 1e-5)),
+        "checks": host_us(torch, lambda: ops._check(x, w, None)),
+        "stream_raw": host_us(torch, lambda: torch._C._cuda_getCurrentRawStream(
+            x.get_device())),
+        "stream_object": host_us(torch, lambda: torch.cuda.current_stream(
+            x.device).cuda_stream),
+        "alloc": host_us(torch, lambda: torch.empty_like(x)),
+        "launch_binding": host_us(torch, lambda: ext.rmsnorm(*args)),
+        "launch_ctypes": host_us(torch, lambda: by_ctypes(*args)),
+    }
+    torch.cuda.synchronize()
+    log(f"[rmsnorm host us/call] {rows}x{d} {str(x.dtype)[6:]}: "
+        + json.dumps({k: round(v, 3) for k, v in split.items()}))
+
+
+def rmsnorm_refusals(torch, dev) -> None:
+    """B3's wrapper raises on each input of a CUDA tensor that its checks
+    refuse, with the same error type as every earlier version."""
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    x = torch.zeros((4, 64), device=dev, dtype=torch.bfloat16)
+    w = torch.ones((64,), device=dev, dtype=torch.bfloat16)
+    bad = {
+        "x fp16": (TypeError, (x.half(), w, None)),
+        "w int32": (TypeError, (x, w.int(), None)),
+        "w (32,)": (ValueError, (x, w[:32], None)),
+        "w (1, 64)": (ValueError, (x, w[None], None)),
+        "w on the CPU": (ValueError, (x, w.cpu(), None)),
+        "x not contiguous": (ValueError, (x.t(), w[:4], None)),
+        "w not contiguous": (ValueError, (x, torch.ones((64, 2), device=dev,
+                                           dtype=torch.bfloat16)[:, 0], None)),
+        "residual fp32": (ValueError, (x, w, x.float())),
+        "residual (4, 32)": (ValueError, (x, w, x[:, :32])),
+        "residual not contiguous": (ValueError, (x, w, torch.zeros(
+            (4, 128), device=dev, dtype=torch.bfloat16)[:, ::2])),
+    }
+    for what, (err, args) in bad.items():
+        try:
+            rmsnorm(*args)
+        except err:
+            continue
+        except Exception as e:             # the wrong error type
+            raise AssertionError(f"rmsnorm with {what}: {type(e).__name__}"
+                                 f" where {err.__name__} was expected")
+        raise AssertionError(f"rmsnorm took {what}")
+    log(f"[rmsnorm] refuses, as before, each of {len(bad)} bad CUDA inputs: "
+        + ", ".join(bad))
+
+
 def kernel_phases(torch, F, timer):
     from repro_torch.kernels.decode_attention import (paged_decode_attention,
                                                       paged_decode_ref)
@@ -272,6 +365,8 @@ def kernel_phases(torch, F, timer):
 
             def kern():
                 return rmsnorm(x, w, r, eps=1e-5)
+            if r is None and dt == w.dtype:
+                rmsnorm_host_split(torch, F, x, w)
             k_ms = timer(kern)
             p_ms = timer(lambda: rmsnorm_ref(x, w, r, 1e-5))
             l_ms = l_dev = None
@@ -343,6 +438,7 @@ def kernel_phases(torch, F, timer):
     # The llama2-7b shapes come first and in a fixed order: the seeded draws
     # before B1 decide its lengths, so its timed case stays the same from
     # run to run. The other models' shapes follow B1.
+    rmsnorm_refusals(torch, dev)
     rmsnorm_cases(((1024, 4096, "bf16", False), (64, 4096, "bf16", False),
                    (8, 4096, "fp32", False), (1024, 4096, "bf16", True),
                    (8, 4096, "fp32", True)))
@@ -435,19 +531,68 @@ def kernel_phases(torch, F, timer):
     return cases
 
 
+def ssd_bound_work(b, s, h, p, g, n, q, kind, init):
+    """Bytes and operations (by type) of the least work of one B4 call as
+    the three-pass kernel does it: C B^T once per (batch, chunk, group)
+    over the lower triangle at the input type's rate; per (batch, head,
+    chunk) the masked scores times x, y_inter and the chunk state, each
+    with one fp32 operand, as two bf16 passes (hi and lo) for bf16 inputs
+    and at the fp32 rate for fp32 inputs. Bytes: x and y, B and C, dt, A
+    and D, the states in and out, and the entering-state scratch written
+    and read once."""
+    cbt = rest = 0.0
+    for c0 in range(0, s, q):
+        lc = min(q, s - c0)
+        tri = lc * (lc + 1) / 2
+        cbt += b * g * tri * n * 2
+        rest += b * h * (tri * p * 2 + 2 * lc * n * p * 2)
+    ops = ({"bf16": cbt + 2 * rest} if kind == "bf16"
+           else {"fp32": cbt + rest})
+    esz = 2 if kind == "bf16" else 4
+    nc = -(-s // q)
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * esz \
+        + b * s * h * 4 + 2 * h * 4 \
+        + (2 if init else 1) * b * h * p * n * 4 \
+        + 2 * b * h * nc * p * n * 4
+    return nbytes, ops
+
+
+def ssd_pass_ms(torch, fn, n: int = 5) -> dict:
+    """Device ms per call of each of B4's passes (kernels named
+    ``ssd_scan_kernel_*``), from torch.profiler over ``n`` calls, with the
+    launches it saw."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count \
+                and PORT_KERNELS["ssd_scan"] in e.key:
+            name = e.key.split(PORT_KERNELS["ssd_scan"] + "_")[1]
+            name = name.split("<")[0].split("(")[0]
+            out[name] = {"ms": e.self_device_time_total / e.count / 1e3,
+                         "seen": e.count}
+    return out
+
+
 def ssd_kernel_phase(torch, timer):
     """B4 at the Mamba-2 prefill's shapes, held against its plain version
     (``ssd_chunked_ref``, or ``ssd_ref`` at a ragged S) and timed beside
     it. No single PyTorch call computes the SSD scan: library_ms is None.
-    The bound counts the least work: C B^T once per (batch, chunk, group)
-    over the lower triangle, at the rate of B and C's type; and in fp32,
-    per (batch, head, chunk), the intra-chunk triangle times x, y_inter
-    and the state update."""
+    The bound is ``ssd_bound_work``'s; a device time under it means the
+    count is wrong, and raises. Each pass's device time is logged."""
     from repro_torch.kernels.ssd_scan import (ssd_chunked_ref, ssd_ref,
                                               ssd_scan)
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = []
+    # the card-filling case at batch 1 comes last: the seeded draws of the
+    # cases before it stay as they were
     for b, s, h, p, g, n, q, kind, init in (
             (4, 2048, 64, 64, 1, 128, 256, "bf16", True),
             (4, 2048, 64, 64, 1, 128, 256, "bf16", False),
@@ -455,7 +600,8 @@ def ssd_kernel_phase(torch, timer):
             (1, 1000, 64, 64, 1, 128, 256, "fp32", True),
             (2, 1024, 112, 64, 1, 64, 256, "bf16", False),
             (2, 256, 2, 64, 2, 32, 64, "fp32", True),
-            (2, 1000, 64, 64, 1, 128, 256, "bf16", False)):
+            (2, 1000, 64, 64, 1, 128, 256, "bf16", False),
+            (1, 2048, 64, 64, 1, 128, 256, "bf16", False)):
         dt_ = torch.bfloat16 if kind == "bf16" else torch.float32
 
         def randn(*shape):
@@ -479,25 +625,21 @@ def ssd_kernel_phase(torch, timer):
         err = max(check_close(torch, y, y_p, kind, what + " y"),
                   check_close(torch, fin, fin_p, "fp32", what + " state",
                               STATE_TOL))
-        cbt = rest = 0.0
-        for c0 in range(0, s, q):
-            lc = min(q, s - c0)
-            tri = lc * (lc + 1) / 2
-            cbt += b * g * tri * n * 2
-            rest += b * h * (tri * p * 2 + 2 * lc * n * p * 2)
-        ops = {"fp32": rest}
-        ops[kind] = ops.get(kind, 0.0) + cbt
-        esz = x.element_size()
-        nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * esz \
-            + b * s * h * 4 + 2 * h * 4 \
-            + (2 if init else 1) * b * h * p * n * 4
-        record(cases, "ssd_scan",
-               f"B={b} S={s} H={h} P={p} G={g} N={n} Q={q}"
-               + (" init" if init else ""), kind, err, timer(kern),
+        nbytes, ops = ssd_bound_work(b, s, h, p, g, n, q, kind, init)
+        case = f"B={b} S={s} H={h} P={p} G={g} N={n} Q={q}" + (
+            " init" if init else "")
+        log(f"[ssd_scan passes] {case} {kind}: "
+            + json.dumps(ssd_pass_ms(torch, kern)))
+        record(cases, "ssd_scan", case, kind, err, timer(kern),
                timer(plain), None, nbytes, ops,
                tol={"y": TOL[kind], "state": STATE_TOL},
                dev=(device_ms(torch, kern, n=5,
-                                   stem=PORT_KERNELS["ssd_scan"]), None))
+                              stem=PORT_KERNELS["ssd_scan"]), None))
+        row = cases[-1]
+        if row["device_ms"] < row["bound_ms"]:
+            raise AssertionError(f"{what}: device time {row['device_ms']} "
+                                 f"ms under its bound {row['bound_ms']} ms:"
+                                 " the bound's count is wrong")
     return cases
 
 

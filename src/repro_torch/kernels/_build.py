@@ -9,7 +9,10 @@ with ``ctypes``. It links only the CUDA runtime: the one driver function a
 kernel needs (``cuTensorMapEncodeTiled``, for B2's TMA tensor maps) is
 reached through ``cudaGetDriverEntryPoint``. Pointers and the CUDA stream
 cross the boundary as ``c_void_p``; every entry point returns
-``cudaGetLastError()`` and :func:`check` raises when it is not 0.
+``cudaGetLastError()`` and :func:`check` raises when it is not 0. The same
+library is also a CPython extension module (``csrc/module.cu``, which
+includes only ``Python.h``; :func:`module`): entry points called often
+enough for ctypes' per-call cost to matter are bound there.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines without ``nvcc``.
@@ -19,9 +22,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -38,6 +43,7 @@ class _State:
     build_seconds: Optional[float] = None
     ptxas_log: str = ""
     funcs: Dict[str, object] = dataclasses.field(default_factory=dict)
+    module: Optional[object] = None
 
 
 _state = _State()
@@ -52,9 +58,10 @@ def headers(root: Path = KERNELS_DIR) -> List[Path]:
 
 
 def include_flags(root: Path = KERNELS_DIR) -> List[str]:
-    """``-I`` for every directory that holds a header."""
-    dirs = sorted({h.parent for h in headers(root)})
-    return [f for d in dirs for f in ("-I", str(d))]
+    """``-I`` for every directory that holds a header, and for Python.h."""
+    dirs = [str(d) for d in sorted({h.parent for h in headers(root)})]
+    dirs.append(sysconfig.get_paths()["include"])
+    return [f for d in dirs for f in ("-I", d)]
 
 
 def _nvcc() -> str:
@@ -140,6 +147,17 @@ def function(name: str, argtypes: Sequence[object]):
         fn.restype = ctypes.c_int
         _state.funcs[name] = fn
     return fn
+
+
+def module():
+    """The library imported as the extension module ``_kernels``."""
+    if _state.module is None:
+        spec = importlib.util.spec_from_file_location(
+            "repro_torch.kernels._kernels", build())
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _state.module = mod
+    return _state.module
 
 
 def check(err: int, name: str) -> None:

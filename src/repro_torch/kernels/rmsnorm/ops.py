@@ -5,7 +5,6 @@ A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel in
 ``csrc/rmsnorm.cu`` or raises. There is no fallback between the two."""
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -13,9 +12,6 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p]
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
@@ -29,14 +25,9 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor,
-            residual: Optional[torch.Tensor] = None, *,
-            eps: float = 1e-5) -> torch.Tensor:
-    """x: (..., D); w: (D,); optional residual like x. See rmsnorm_ref."""
-    if x.device.type == "cpu":
-        return rmsnorm_ref(x, w, residual, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: unsupported device {x.device}")
+def _check(x: torch.Tensor, w: torch.Tensor,
+           residual: Optional[torch.Tensor]) -> None:
+    """Raise for what the kernel does not take; return for what it does."""
     d = x.shape[-1]
     if x.dtype not in _DTYPES or w.dtype not in _DTYPES:
         raise TypeError(f"rmsnorm: dtypes {x.dtype}/{w.dtype} not in "
@@ -52,14 +43,33 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
                          "x's shape, dtype and device")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rmsnorm: x and w must be contiguous")
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            residual: Optional[torch.Tensor] = None, *,
+            eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., D); w: (D,); optional residual like x. See rmsnorm_ref.
+
+    On CUDA the host work of a call is kept under F.rms_norm's: after the
+    checks, one allocation and a launch through the library's CPython
+    binding on the raw handle of the current stream."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return rmsnorm_ref(x, w, residual, eps)
+        raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    _check(x, w, residual)
+    d = x.shape[-1]
     y = torch.empty_like(x)
-    rows = x.numel() // d if d else 0
-    fn = _build.function("rmsnorm_launch", _ARGTYPES)
-    err = fn(x.data_ptr(), None if residual is None else residual.data_ptr(),
-             w.data_ptr(), y.data_ptr(), rows, d, eps,
-             int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "rmsnorm")
+    # torch._C._cuda_getCurrentRawStream (private; PyTorch's generated
+    # Triton launchers read the stream through it) gives the handle as an
+    # int without building a torch.cuda.Stream
+    err = _build.module().rmsnorm(
+        x.data_ptr(), None if residual is None else residual.data_ptr(),
+        w.data_ptr(), y.data_ptr(), x.numel() // d if d else 0, d, eps,
+        x.dtype is torch.bfloat16, w.dtype is torch.bfloat16,
+        torch._C._cuda_getCurrentRawStream(x.get_device()))
+    if err:
+        _build.check(err, "rmsnorm")
     rmsnorm.launches += 1
     return y
 

@@ -10,18 +10,21 @@ Shapes (multi-head SSD, ngroups shared B/C like GQA):
 A CPU tensor goes to the plain versions, dispatched as the reference
 dispatches (``ssd_ref`` when S is not a multiple of the chunk, else
 ``ssd_chunked_ref``); a CUDA tensor goes to the kernel in
-``csrc/ssd_scan.cu`` for every S, or raises."""
+``csrc/ssd_scan.cu`` for every S, or raises. ``ssd_split_ref`` repeats the
+kernel's three passes and its split-bf16 products in plain PyTorch; no
+dispatch reaches it."""
 from __future__ import annotations
 
 import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _MAX_P, _MAX_N, _MAX_CHUNK = 64, 128, 4096
 
 
@@ -115,6 +118,72 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, D,
     return y.to(x.dtype), prev
 
 
+def _split_dot(eq: str, exact: torch.Tensor, v: torch.Tensor,
+               split: bool) -> torch.Tensor:
+    """einsum(eq, exact, v) in fp32; with ``split``, v (fp32) is taken as
+    hi = bf16(v) and lo = bf16(v - hi) in two products against the
+    bf16-exact ``exact``, as the kernel's tensor-core passes take it."""
+    if not split:
+        return torch.einsum(eq, exact, v)
+    hi = v.bfloat16().float()
+    lo = (v - hi).bfloat16().float()
+    return torch.einsum(eq, exact, hi) + torch.einsum(eq, exact, lo)
+
+
+def ssd_split_ref(x, dt, A, Bm, Cm, D,
+                  init_state: Optional[torch.Tensor] = None,
+                  chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's numerics in plain PyTorch, for any S: its three
+    passes (chunk states, the carry across chunks, outputs), the cumsum of
+    dt * A summed in double and rounded to fp32, and for bf16 inputs each
+    product with an fp32 operand (the decayed x, the entering state, the
+    masked scores) split into bf16 hi and lo parts (``_split_dot``); C B^T
+    is exact. A ragged last chunk is padded with dt = 0, x = 0."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    q = min(chunk, s)
+    c = -(-s // q)
+    pad = c * q - s
+    split = x.dtype == torch.bfloat16
+
+    def chunks(t):                      # (B, S, ...) -> (B, C, Q, ...)
+        t = F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(b, c, q, *t.shape[2:])
+    xc = chunks(x)                                    # (B, C, Q, H, P)
+    dtc = chunks(dt)                                  # (B, C, Q, H)
+    Bc = chunks(_expand_groups(Bm, h))                # (B, C, Q, H, N)
+    Cc = chunks(_expand_groups(Cm, h))
+    cum = torch.cumsum((dtc * A).double(), dim=2).float()
+    cum_last = cum[:, :, -1]                          # (B, C, H)
+
+    # 1) each chunk's own state: x scaled by its decay to the chunk's end
+    xs = xc * (torch.exp(cum_last[:, :, None] - cum) * dtc)[..., None]
+    own = _split_dot("bcqhn,bcqhp->bchpn", Bc, xs, split)
+    # 2) the carry: the state entering each chunk
+    prev = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device) \
+        if init_state is None else init_state.float()
+    entry = []
+    for ci in range(c):
+        entry.append(prev)
+        prev = prev * torch.exp(cum_last[:, ci])[..., None, None] \
+            + own[:, ci]
+    entry = torch.stack(entry, dim=1)                 # (B, C, H, P, N)
+    # 3) outputs
+    y_inter = _split_dot("bcqhn,bchpn->bcqhp", Cc, entry, split) \
+        * torch.exp(cum)[..., None]
+    scores = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc)
+    cq = cum.permute(0, 1, 3, 2)                      # (B, C, H, Q)
+    seg = cq[..., :, None] - cq[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    decay = torch.exp(torch.where(mask, seg, torch.full_like(seg,
+                                                             -float("inf"))))
+    scores = scores * decay * dtc.permute(0, 1, 3, 2)[..., None, :]
+    y_intra = _split_dot("bckhp,bchqk->bcqhp", xc, scores, split)
+    y = (y_intra + y_inter).reshape(b, c * q, h, p)[:, :s] \
+        + x.float() * D[None, None, :, None]
+    return y.to(x.dtype), prev
+
+
 def ssd_decode_step(state, x, dt, A, Bm, Cm, D
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-token recurrence. state: (B, H, P, N); x: (B, H, P); dt: (B, H);
@@ -157,9 +226,9 @@ def ssd_scan(x, dt, A, Bm, Cm, D, init_state: Optional[torch.Tensor] = None,
         raise ValueError(f"ssd_scan: dt {tuple(dt.shape)}, A "
                          f"{tuple(A.shape)}, D {tuple(D.shape)} for x "
                          f"{tuple(x.shape)}")
-    if p > _MAX_P or n > _MAX_N or p % 4 or n % 4:
+    if p > _MAX_P or n > _MAX_N or p % 16 or n % 16:
         raise ValueError(f"ssd_scan: head dim {p} and state {n} must be "
-                         f"multiples of 4 up to {_MAX_P} and {_MAX_N}")
+                         f"multiples of 16 up to {_MAX_P} and {_MAX_N}")
     if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"ssd_scan: x/Bm/Cm dtypes {x.dtype}/{Bm.dtype}/"
                         f"{Cm.dtype}; one of {_DTYPES}, all alike, expected")
@@ -170,19 +239,29 @@ def ssd_scan(x, dt, A, Bm, Cm, D, init_state: Optional[torch.Tensor] = None,
         raise ValueError(f"ssd_scan: init_state {tuple(init_state.shape)} "
                          f"is not {(b, h, p, n)}")
     if not all(t.device == x.device and t.is_contiguous()
-               for t in [x, Bm, Cm] + f32):
-        raise ValueError("ssd_scan: inputs must be contiguous on one device")
+               for t in [x, Bm, Cm] + f32) or any(
+                   t.data_ptr() % 16 for t in [x, Bm, Cm] + f32[3:]):
+        raise ValueError("ssd_scan: inputs must be contiguous on one device"
+                         " (x, Bm, Cm and init_state 16-byte aligned)")
     chunk = min(int(chunk), s)
     if not 0 < chunk <= _MAX_CHUNK:
         raise ValueError(f"ssd_scan: S {s}, chunk {chunk}: need S > 0 and "
                          f"the chunk in (0, {_MAX_CHUNK}]")
     y = torch.empty_like(x)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    # scratch of the kernel's passes: each chunk's own state, the state
+    # entering it, and its cumsum of dt * A
+    nc = -(-s // chunk)
+    states = torch.empty((2, b, h, nc, p, n), dtype=torch.float32,
+                         device=x.device)
+    cum = torch.empty((b, h, nc, chunk), dtype=torch.float32,
+                      device=x.device)
     fn = _build.function("ssd_scan_launch", _ARGTYPES)
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
              Cm.data_ptr(), D.data_ptr(),
              None if init_state is None else init_state.data_ptr(),
-             y.data_ptr(), final.data_ptr(), b, s, h, p, g, n, chunk,
+             y.data_ptr(), final.data_ptr(), states[0].data_ptr(),
+             states[1].data_ptr(), cum.data_ptr(), b, s, h, p, g, n, chunk,
              int(x.dtype == torch.bfloat16),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssd_scan")
@@ -192,4 +271,5 @@ def ssd_scan(x, dt, A, Bm, Cm, D, init_state: Optional[torch.Tensor] = None,
 
 ssd_scan.launches = 0
 
-__all__ = ["ssd_scan", "ssd_ref", "ssd_chunked_ref", "ssd_decode_step"]
+__all__ = ["ssd_scan", "ssd_ref", "ssd_chunked_ref", "ssd_split_ref",
+           "ssd_decode_step"]

@@ -152,7 +152,7 @@ def test_cpu_tensors_never_build(monkeypatch):
     build (this machine may have no nvcc and no card)."""
     def refuse(*a, **k):
         raise AssertionError("kernel build touched by a CPU call")
-    for name in ("build", "library", "function"):
+    for name in ("build", "library", "function", "module"):
         monkeypatch.setattr(_build, name, refuse)
     rng = np.random.default_rng(4)
     q = torch.from_numpy(rng.standard_normal((1, 16, 4, 32))).float()
@@ -310,3 +310,44 @@ def test_flash_tiles_cover_rows_once_heaviest_first(b, sq, hq):
     assert len(seen) == b * hq * sq
     ends = [r0 + n for _, _, r0, n in tiles]
     assert ends == sorted(ends, reverse=True)
+
+
+@pytest.mark.parametrize("what,err,make", [
+    ("x fp16", TypeError, lambda x, w: (x.half(), w, None)),
+    ("w int32", TypeError, lambda x, w: (x, w.int(), None)),
+    ("w (32,)", ValueError, lambda x, w: (x, w[:32], None)),
+    ("w (1, 64)", ValueError, lambda x, w: (x, w[None], None)),
+    ("w on meta", ValueError, lambda x, w: (x, w.to("meta"), None)),
+    ("x not contiguous", ValueError, lambda x, w: (x.t(), w[:4], None)),
+    ("w not contiguous", ValueError,
+     lambda x, w: (x, torch.ones((64, 2))[:, 0], None)),
+    ("residual bf16", ValueError, lambda x, w: (x, w, x.bfloat16())),
+    ("residual (4, 32)", ValueError, lambda x, w: (x, w, x[:, :32])),
+    ("residual not contiguous", ValueError,
+     lambda x, w: (x, w, torch.zeros((4, 128))[:, ::2])),
+])
+def test_rmsnorm_checks_refuse_what_the_kernel_does_not_take(what, err,
+                                                             make):
+    """The checks B3's wrapper runs before a launch, on CPU tensors: each
+    input the kernel does not take raises its error type; the inputs the
+    kernel takes pass."""
+    from repro_torch.kernels.rmsnorm.ops import _check
+    x, w = torch.zeros((4, 64)), torch.ones((64,))
+    with pytest.raises(err):
+        _check(*make(x, w))
+    _check(x, w, None)
+    _check(x, w.bfloat16(), x.clone())
+
+
+def test_kernel_sources_include_no_torch_headers():
+    """Every CUDA source builds with nvcc alone: the CPython binding
+    includes Python.h, no source includes PyTorch's headers (minutes to
+    compile), and Python's include directory is on the include path."""
+    import re
+    import sysconfig
+    srcs = _build.sources() + _build.headers()
+    assert any(p.name == "module.cu" for p in srcs)
+    for p in srcs:
+        for inc in re.findall(r'#include\s*[<"]([^>"]+)[>"]', p.read_text()):
+            assert not inc.startswith(("torch/", "ATen/", "c10/")), (p, inc)
+    assert sysconfig.get_paths()["include"] in _build.include_flags()

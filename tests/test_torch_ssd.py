@@ -2,7 +2,9 @@
 ``ssd_scan``) against the reference's oracles, its dispatcher and its
 Pallas kernel in interpret mode, over ``test_ssd_sweep``'s grid. The CUDA
 kernel is held against these plain versions on the card by
-chip_smoke.py."""
+chip_smoke.py; ``ssd_split_ref``, its numerics in plain PyTorch (three
+passes, split-bf16 products), is held against the reference here, so the
+precision plan is checked before any card runs it."""
 import numpy as np
 import pytest
 
@@ -16,7 +18,8 @@ from repro.kernels.ssd_scan import ssd_ref as jax_ref  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan as jax_scan  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan_pallas  # noqa: E402
 from repro_torch.kernels.ssd_scan import (ssd_chunked_ref,  # noqa: E402
-                                          ssd_decode_step, ssd_ref, ssd_scan)
+                                          ssd_decode_step, ssd_ref, ssd_scan,
+                                          ssd_split_ref)
 
 _TORCH_DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -122,3 +125,42 @@ def test_ssd_decode_continues_the_scan():
                              Cm[:, 32], D)
     torch.testing.assert_close(y1, y_all[:, 32], rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(f1, f_all, rtol=1e-5, atol=1e-5)
+
+
+# the models' chunk, head dim and state at two heads, so that it runs in
+# seconds on the CPU
+MODEL_CASE = (1, 1024, 2, 64, 1, 128, 256)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", GRID + [MODEL_CASE])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_ssd_split_ref_matches_jax(b, s, h, p, g, n, chunk, dtype):
+    """The kernel's numerics (for bf16 inputs the fp32 operand of three
+    products split into bf16 hi and lo) against the sequential and chunked
+    oracles and the Pallas kernel, at the unchanged tolerances."""
+    J, T = _inputs(b, s, h, p, g, n, dtype)
+    y, f = ssd_split_ref(*T, chunk=chunk)
+    assert y.dtype == T[0].dtype and f.dtype == torch.float32
+    tol = _tol(dtype)
+    for y_j, f_j in (jax_ref(*J), jax_chunked(*J, chunk=chunk),
+                     ssd_scan_pallas(*J, chunk=chunk, interpret=True)):
+        _close(y, y_j, tol)
+        _close(f, f_j, STATE_TOL)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,init", [
+    (2, 50, 4, 16, 2, 8, 16, True), (1, 1000, 2, 64, 1, 128, 256, True),
+    (2, 45, 4, 16, 1, 16, 32, False)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_ssd_split_ref_ragged_matches_oracle(b, s, h, p, g, n, chunk, init,
+                                             dtype):
+    """A ragged last chunk (padded with dt = 0, x = 0, as the kernel does)
+    gives the recurrence's own result."""
+    J, T = _inputs(b, s, h, p, g, n, dtype, seed=9, init=init)
+    y, f = ssd_split_ref(*T, chunk=chunk)
+    y_j, f_j = jax_ref(*J)
+    _close(y, y_j, _tol(dtype))
+    _close(f, f_j, STATE_TOL)
+    y_t, f_t = ssd_ref(*T)
+    _close(y, y_t.float().numpy(), _tol(dtype))
+    _close(f, f_t.numpy(), STATE_TOL)
