@@ -52,8 +52,8 @@
    1 in bf16 among them), held against its plain version (y at the
    tolerances above, the final state at 1e-3) and timed beside it, with a
    line of each pass's device time; its bound (``ssd_bound_work``) counts
-   the three-pass kernel's least work, and a device time under it
-   raises.
+   the operations as the three-pass kernel does them and the bytes of the
+   scan's inputs and outputs, and a device time under it raises.
 8. Generation reference check: reduced fp32 mamba2-1.3b and zamba2-7b
    generate (prefill, 12 greedy decode steps, flushes every 8) with the
    same tokens on the card and on the CPU.
@@ -109,6 +109,7 @@ SOURCES = {
 PORT_KERNELS = {"paged_decode_attention": "paged_decode_kernel",
                 "flash_attention": "flash_fwd_", "rmsnorm": "rmsnorm_kernel",
                 "ssd_scan": "ssd_scan_kernel"}
+SSD_PASSES = 3                             # B4's kernels per call
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)     # SSD final state, as the
                                            # reference's test_ssd_sweep
 
@@ -167,7 +168,8 @@ class Timer:
         return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, n: int = 20, stem: str | None = None) -> float:
+def device_ms(torch, fn, n: int = 20, stem: str | None = None,
+              per_call: int = 1) -> float:
     """Device time per call of ``fn``; unlike the host-clock ``Timer``,
     launch and wrapper overhead on the host do not count.
 
@@ -175,9 +177,11 @@ def device_ms(torch, fn, n: int = 20, stem: str | None = None) -> float:
     operation, its mean time a launch times its launches a call (at least
     one, so a launch the profiler missed does not shrink the sum). The
     reading is kept only if the profiler saw device time and, where
-    ``stem`` names the port's kernel, at least ``n`` launches of a kernel
-    of that name. Otherwise (some profilers drop kernels, or trace no
-    device at all) the time comes from ``queued_ms``, and a line says so.
+    ``stem`` names the port's kernel, every launch of a kernel of that
+    name: ``per_call`` launches (one per pass) in each of the ``n`` calls,
+    so a pass the profiler missed entirely is not left out. Otherwise
+    (some profilers drop kernels, or trace no device at all) the time
+    comes from ``queued_ms``, and a line says so.
     """
     fn()
     torch.cuda.synchronize()
@@ -195,10 +199,10 @@ def device_ms(torch, fn, n: int = 20, stem: str | None = None) -> float:
                 * max(1, round(e.count / n))
             if stem is not None and stem in e.key:
                 seen += e.count
-    if total and (stem is None or seen >= n):
+    if total and (stem is None or seen >= n * per_call):
         return total
     ms = queued_ms(torch, fn, n)
-    log(f"[timing] the profiler saw {seen} of {n} launches of "
+    log(f"[timing] the profiler saw {seen} of {n * per_call} launches of "
         f"{stem or 'any kernel'} ({total:.4g} ms a call); device time from "
         f"queued CUDA events instead: {ms:.4g} ms a call")
     return ms
@@ -272,12 +276,10 @@ def host_us(torch, fn, n: int = 200) -> float:
 
 def rmsnorm_host_split(torch, F, x, w) -> None:
     """Log where B3's wrapper spends its host time, in us per call (the
-    least of 5 loops of 200 calls): the checks, reading the stream (raw handle, and through a
-    torch.cuda.Stream object as before), the allocation, and the launch
-    through the CPython binding (and through ctypes as before), beside the
+    least of 5 loops of 200 calls): the checks, reading the stream (raw
+    handle, and through a torch.cuda.Stream object as before), the
+    allocation, and the launch through the CPython binding, beside the
     whole wrapper and F.rms_norm."""
-    import ctypes
-
     from repro_torch.kernels import _build
     from repro_torch.kernels.rmsnorm import ops
     rows, d = x.shape
@@ -285,9 +287,6 @@ def rmsnorm_host_split(torch, F, x, w) -> None:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     args = (x.data_ptr(), None, w.data_ptr(), y.data_ptr(), rows, d, 1e-5,
             x.dtype is torch.bfloat16, w.dtype is torch.bfloat16, stream)
-    by_ctypes = _build.function("rmsnorm_launch", [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p])
     ext = _build.module()
     split = {
         "wrapper": host_us(torch, lambda: ops.rmsnorm(x, w, eps=1e-5)),
@@ -299,7 +298,6 @@ def rmsnorm_host_split(torch, F, x, w) -> None:
             x.device).cuda_stream),
         "alloc": host_us(torch, lambda: torch.empty_like(x)),
         "launch_binding": host_us(torch, lambda: ext.rmsnorm(*args)),
-        "launch_ctypes": host_us(torch, lambda: by_ctypes(*args)),
     }
     torch.cuda.synchronize()
     log(f"[rmsnorm host us/call] {rows}x{d} {str(x.dtype)[6:]}: "
@@ -538,8 +536,9 @@ def ssd_bound_work(b, s, h, p, g, n, q, kind, init):
     chunk) the masked scores times x, y_inter and the chunk state, each
     with one fp32 operand, as two bf16 passes (hi and lo) for bf16 inputs
     and at the fp32 rate for fp32 inputs. Bytes: x and y, B and C, dt, A
-    and D, the states in and out, and the entering-state scratch written
-    and read once."""
+    and D, and the states in and out, each once. The kernel's scratch (the
+    chunk states and entering states) is not counted: the scan does not
+    need it, only this design does."""
     cbt = rest = 0.0
     for c0 in range(0, s, q):
         lc = min(q, s - c0)
@@ -549,11 +548,9 @@ def ssd_bound_work(b, s, h, p, g, n, q, kind, init):
     ops = ({"bf16": cbt + 2 * rest} if kind == "bf16"
            else {"fp32": cbt + rest})
     esz = 2 if kind == "bf16" else 4
-    nc = -(-s // q)
     nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * esz \
         + b * s * h * 4 + 2 * h * 4 \
-        + (2 if init else 1) * b * h * p * n * 4 \
-        + 2 * b * h * nc * p * n * 4
+        + (2 if init else 1) * b * h * p * n * 4
     return nbytes, ops
 
 
@@ -633,8 +630,8 @@ def ssd_kernel_phase(torch, timer):
         record(cases, "ssd_scan", case, kind, err, timer(kern),
                timer(plain), None, nbytes, ops,
                tol={"y": TOL[kind], "state": STATE_TOL},
-               dev=(device_ms(torch, kern, n=5,
-                              stem=PORT_KERNELS["ssd_scan"]), None))
+               dev=(device_ms(torch, kern, n=5, stem=PORT_KERNELS["ssd_scan"],
+                              per_call=SSD_PASSES), None))
         row = cases[-1]
         if row["device_ms"] < row["bound_ms"]:
             raise AssertionError(f"{what}: device time {row['device_ms']} "

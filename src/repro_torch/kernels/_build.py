@@ -1,25 +1,24 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``kernels/**/csrc/*.cu`` file has a plain C interface. At first use
+Every ``kernels/**/csrc/*.cu`` file is compiled with nvcc alone. At first use
 each source is compiled by its own ``nvcc`` process (all started together),
 the objects are linked into one shared library under ``kernels/_build/``
 (named by a hash of the sources, every ``kernels/**/csrc/*.cuh`` header and
-the flags, so an edit to any of them rebuilds), and the library is loaded
-with ``ctypes``. It links only the CUDA runtime: the one driver function a
-kernel needs (``cuTensorMapEncodeTiled``, for B2's TMA tensor maps) is
-reached through ``cudaGetDriverEntryPoint``. Pointers and the CUDA stream
-cross the boundary as ``c_void_p``; every entry point returns
-``cudaGetLastError()`` and :func:`check` raises when it is not 0. The same
-library is also a CPython extension module (``csrc/module.cu``, which
-includes only ``Python.h``; :func:`module`): entry points called often
-enough for ctypes' per-call cost to matter are bound there.
+the flags and the Python it is built for, so an edit to any of them
+rebuilds), and the library is imported as the CPython extension module
+``_kernels`` (:func:`module`). It links only the CUDA runtime: the one
+driver function a kernel needs (``cuTensorMapEncodeTiled``, for B2's TMA
+tensor maps) is reached through ``cudaGetDriverEntryPoint``. The kernels'
+C entry points are declared in ``csrc/launch.cuh`` and bound in
+``csrc/module.cu``, which includes ``Python.h``, never PyTorch's headers:
+pointers and the CUDA stream cross as Python ints, and a launch that
+returns a CUDA error raises ``RuntimeError``.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines without ``nvcc``.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import hashlib
 import importlib.util
@@ -29,7 +28,7 @@ import subprocess
 import sysconfig
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "_build"
@@ -39,10 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 @dataclasses.dataclass
 class _State:
-    lib: Optional[ctypes.CDLL] = None
     build_seconds: Optional[float] = None
     ptxas_log: str = ""
-    funcs: Dict[str, object] = dataclasses.field(default_factory=dict)
     module: Optional[object] = None
 
 
@@ -62,6 +59,14 @@ def include_flags(root: Path = KERNELS_DIR) -> List[str]:
     dirs = [str(d) for d in sorted({h.parent for h in headers(root)})]
     dirs.append(sysconfig.get_paths()["include"])
     return [f for d in dirs for f in ("-I", d)]
+
+
+def python_abi() -> List[str]:
+    """What importing the library as an extension module depends on:
+    Python's include directory (its version) and the extension suffix (its
+    ABI)."""
+    return [sysconfig.get_paths()["include"],
+            sysconfig.get_config_var("EXT_SUFFIX") or ""]
 
 
 def _nvcc() -> str:
@@ -88,11 +93,17 @@ def _digest(flags: Sequence[str], root: Path = KERNELS_DIR) -> str:
     return h.hexdigest()[:16]
 
 
+def library_name() -> str:
+    """The library's file name: a hash of the sources, the headers, the
+    flags and the Python it is imported by."""
+    return f"libreprotorch_{_digest([*NVCC_FLAGS, *python_abi()])}.so"
+
+
 def build() -> Path:
     """Compile (if needed) and return the shared library's path. ptxas's
     register and spill report of a fresh build is kept in ``ptxas_log``."""
     srcs = sources()
-    lib_path = BUILD_DIR / f"libreprotorch_{_digest(NVCC_FLAGS)}.so"
+    lib_path = BUILD_DIR / library_name()
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -129,28 +140,11 @@ def build() -> Path:
     return lib_path
 
 
-def library() -> ctypes.CDLL:
-    if _state.lib is None:
-        _state.lib = ctypes.CDLL(str(build()))
-        _state.lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        _state.lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return _state.lib
-
-
-def function(name: str, argtypes: Sequence[object]):
-    """The library's C entry point ``name``, typed; it returns an int
-    CUDA error code."""
-    fn = _state.funcs.get(name)
-    if fn is None:
-        fn = getattr(library(), name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _state.funcs[name] = fn
-    return fn
-
-
 def module():
-    """The library imported as the extension module ``_kernels``."""
+    """The library imported as the extension module ``_kernels``: one
+    function per kernel (``paged_decode``, ``flash_attention``,
+    ``rmsnorm``, ``ssd_scan``), each taking its C entry point's arguments
+    and raising ``RuntimeError`` on a CUDA error."""
     if _state.module is None:
         spec = importlib.util.spec_from_file_location(
             "repro_torch.kernels._kernels", build())
@@ -158,12 +152,6 @@ def module():
         spec.loader.exec_module(mod)
         _state.module = mod
     return _state.module
-
-
-def check(err: int, name: str) -> None:
-    if err != 0:
-        msg = library().repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
 
 
 def build_seconds() -> Optional[float]:

@@ -1,49 +1,132 @@
-// The library as a CPython extension module (`_kernels`), for entry points
-// whose host cost per call matters: a METH_FASTCALL function reads its
-// arguments as Python ints and floats, with none of ctypes' per-argument
-// marshalling. Only Python.h is included, never PyTorch's headers, so the
-// file builds in seconds; the interpreter's symbols resolve when the
-// library is imported. It carries B3 (`rmsnorm`), which the serving
-// path calls twice per layer per step.
+// The kernel library as a CPython extension module (`_kernels`): the one
+// binding of the kernels' C entry points (`launch.cuh`) to Python. Each
+// METH_FASTCALL function reads its arguments as Python ints and floats,
+// with none of ctypes' per-argument marshalling, launches, and raises
+// RuntimeError when the launch returns a CUDA error. Only Python.h and the
+// CUDA runtime are included, never PyTorch's headers, so the file builds in
+// seconds; the interpreter's symbols resolve when the library is imported.
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <string.h>
 
-extern "C" int rmsnorm_launch(const void* x, const void* r, const void* w,
-                              void* y, int rows, int d, float eps,
-                              int x_bf16, int w_bf16, void* stream);
+#include "launch.cuh"
 
 namespace {
 
-// a pointer from a Python int, or null from None
-void* pointer(PyObject* o) {
-  return o == Py_None ? nullptr : PyLong_AsVoidPtr(o);
+// A launch's arguments, read before the launch by a format of one letter
+// per argument: 'p' an address (a Python int, or None for null), 'i' an
+// int, 'f' a float. `ok` is false, with a Python error set, when the count
+// or a value does not fit.
+struct Args {
+  union {
+    void* p;
+    int i;
+    float f;
+  } v[24];
+  bool ok = false;
+
+  Args(PyObject* const* a, Py_ssize_t n, const char* fmt, const char* name) {
+    const Py_ssize_t want = static_cast<Py_ssize_t>(strlen(fmt));
+    if (n != want) {
+      PyErr_Format(PyExc_TypeError, "%s: %zd arguments expected, got %zd",
+                   name, want, n);
+      return;
+    }
+    for (Py_ssize_t k = 0; k < n; ++k) {
+      if (fmt[k] == 'p') {
+        v[k].p = a[k] == Py_None ? nullptr : PyLong_AsVoidPtr(a[k]);
+      } else if (fmt[k] == 'i') {
+        const long x = PyLong_AsLong(a[k]);
+        if (!PyErr_Occurred() && (x < INT_MIN || x > INT_MAX))
+          PyErr_Format(PyExc_OverflowError, "%s: argument %zd out of int "
+                       "range", name, k);
+        v[k].i = static_cast<int>(x);
+      } else {
+        v[k].f = static_cast<float>(PyFloat_AsDouble(a[k]));
+      }
+      if (PyErr_Occurred()) return;
+    }
+    ok = true;
+  }
+  void* p(int k) const { return v[k].p; }
+  int i(int k) const { return v[k].i; }
+  float f(int k) const { return v[k].f; }
+};
+
+PyObject* result(int err, const char* name) {
+  if (err != 0)
+    return PyErr_Format(PyExc_RuntimeError, "%s: CUDA launch failed (%d: %s)",
+                        name, err,
+                        cudaGetErrorString(static_cast<cudaError_t>(err)));
+  Py_RETURN_NONE;
 }
 
-// rmsnorm(x, r, w, y, rows, d, eps, x_bf16, w_bf16, stream) -> CUDA error
-// code; x, r (or None), w, y and the stream are addresses as Python ints
-PyObject* rmsnorm(PyObject*, PyObject* const* args, Py_ssize_t n) {
-  if (n != 10) {
-    PyErr_SetString(PyExc_TypeError, "rmsnorm: 10 arguments expected");
-    return nullptr;
-  }
-  void* x = pointer(args[0]);
-  void* r = pointer(args[1]);
-  void* w = pointer(args[2]);
-  void* y = pointer(args[3]);
-  const long rows = PyLong_AsLong(args[4]), d = PyLong_AsLong(args[5]);
-  const double eps = PyFloat_AsDouble(args[6]);
-  const long x_bf16 = PyLong_AsLong(args[7]), w_bf16 = PyLong_AsLong(args[8]);
-  void* stream = pointer(args[9]);
-  if (PyErr_Occurred()) return nullptr;
-  return PyLong_FromLong(rmsnorm_launch(
-      x, r, w, y, static_cast<int>(rows), static_cast<int>(d),
-      static_cast<float>(eps), static_cast<int>(x_bf16),
-      static_cast<int>(w_bf16), stream));
+// paged_decode(q, k_pages, v_pages, out, block_table, lengths, B, Hq, Hkv,
+//              D, page, max_pages, scale, bf16, stream)
+PyObject* paged_decode(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  const char* name = "paged_decode_attention";
+  const Args in(a, n, "ppppppiiiiiifip", name);
+  if (!in.ok) return nullptr;
+  return result(paged_decode_launch(
+                    in.p(0), in.p(1), in.p(2), in.p(3), in.p(4), in.p(5),
+                    in.i(6), in.i(7), in.i(8), in.i(9), in.i(10), in.i(11),
+                    in.f(12), in.i(13), in.p(14)),
+                name);
+}
+
+// flash_attention(q, k, v, o, kv_len or None, B, Sq, Skv, Hq, Hkv, D,
+//                 q_offset, causal, scale, block_q, bf16, stream)
+PyObject* flash_attention(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  const char* name = "flash_attention";
+  const Args in(a, n, "pppppiiiiiiiifiip", name);
+  if (!in.ok) return nullptr;
+  return result(flash_attention_launch(
+                    in.p(0), in.p(1), in.p(2), in.p(3), in.p(4), in.i(5),
+                    in.i(6), in.i(7), in.i(8), in.i(9), in.i(10), in.i(11),
+                    in.i(12), in.f(13), in.i(14), in.i(15), in.p(16)),
+                name);
+}
+
+// rmsnorm(x, r or None, w, y, rows, d, eps, x_bf16, w_bf16, stream)
+PyObject* rmsnorm(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  const char* name = "rmsnorm";
+  const Args in(a, n, "ppppiifiip", name);
+  if (!in.ok) return nullptr;
+  return result(rmsnorm_launch(in.p(0), in.p(1), in.p(2), in.p(3), in.i(4),
+                               in.i(5), in.f(6), in.i(7), in.i(8), in.p(9)),
+                name);
+}
+
+// ssd_scan(x, dt, A, Bm, Cm, D, init or None, y, fin, st, entry, cum, B, S,
+//          H, P, G, N, Q, bf16, stream)
+PyObject* ssd_scan(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  const char* name = "ssd_scan";
+  const Args in(a, n, "ppppppppppppiiiiiiiip", name);
+  if (!in.ok) return nullptr;
+  return result(ssd_scan_launch(
+                    in.p(0), in.p(1), in.p(2), in.p(3), in.p(4), in.p(5),
+                    in.p(6), in.p(7), in.p(8), in.p(9), in.p(10), in.p(11),
+                    in.i(12), in.i(13), in.i(14), in.i(15), in.i(16),
+                    in.i(17), in.i(18), in.i(19), in.p(20)),
+                name);
+}
+
+template <PyObject* (*F)(PyObject*, PyObject* const*, Py_ssize_t)>
+PyCFunction fastcall() {
+  return reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(F));
 }
 
 PyMethodDef methods[] = {
-    {"rmsnorm", reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(rmsnorm)),
-     METH_FASTCALL, "Launch kernel B3; returns the CUDA error code."},
+    {"paged_decode", fastcall<paged_decode>(), METH_FASTCALL,
+     "Launch kernel B1; raises RuntimeError on a CUDA error."},
+    {"flash_attention", fastcall<flash_attention>(), METH_FASTCALL,
+     "Launch kernel B2; raises RuntimeError on a CUDA error."},
+    {"rmsnorm", fastcall<rmsnorm>(), METH_FASTCALL,
+     "Launch kernel B3; raises RuntimeError on a CUDA error."},
+    {"ssd_scan", fastcall<ssd_scan>(), METH_FASTCALL,
+     "Launch kernel B4; raises RuntimeError on a CUDA error."},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef module_def = {PyModuleDef_HEAD_INIT, "_kernels", nullptr, -1,

@@ -34,6 +34,7 @@
 // per (b, kv head) leaves SMs idle at batch 1; splitting the walk across
 // CTAs is later work.
 #include "common.cuh"
+#include "launch.cuh"
 
 namespace {
 

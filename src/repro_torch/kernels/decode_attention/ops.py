@@ -8,7 +8,6 @@ A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
 in ``csrc/paged_decode.cu`` or raises."""
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -17,8 +16,6 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _MAX_GROUP = 8
 
 
@@ -134,14 +131,13 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_decode_attention: q and the pools must be "
                          "16-byte aligned (vector loads of whole rows)")
     out = torch.empty_like(q)
-    fn = _build.function("paged_decode_launch", _ARGTYPES)
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             out.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
-             b, hq, hkv, d, page, block_table.shape[1],
-             float(scale if scale is not None else d ** -0.5),
-             int(q.dtype == torch.bfloat16),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged_decode_attention")
+    _build.module().paged_decode(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+        block_table.data_ptr(), lengths.data_ptr(), b, hq, hkv, d, page,
+        block_table.shape[1],
+        float(scale if scale is not None else d ** -0.5),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
     paged_decode_attention.launches += 1
     return out
 

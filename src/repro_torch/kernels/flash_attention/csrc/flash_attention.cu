@@ -61,6 +61,7 @@
 #include <cuda.h>
 
 #include "common.cuh"
+#include "launch.cuh"
 #include "sm90.cuh"
 
 namespace {

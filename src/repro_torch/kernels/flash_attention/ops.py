@@ -10,7 +10,6 @@ raises. On the card the bf16 kernel's q tile and launch order are chosen
 here (``launch_plan``), where the CPU tests can reach them."""
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -19,8 +18,6 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 N_SMS = 132                          # H100 SXM
 
 
@@ -186,13 +183,12 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     out = torch.empty_like(q)
     block_q = launch_plan(b, sq, hq)[0] if bf16 else 64
-    fn = _build.function("flash_attention_launch", _ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             None if kv_len is None else kv_len.data_ptr(),
-             b, sq, skv, hq, hkv, d, q_offset, int(causal),
-             float(scale if scale is not None else d ** -0.5), block_q,
-             int(bf16), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention")
+    _build.module().flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if kv_len is None else kv_len.data_ptr(),
+        b, sq, skv, hq, hkv, d, q_offset, int(causal),
+        float(scale if scale is not None else d ** -0.5), block_q,
+        int(bf16), torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
     return out
 

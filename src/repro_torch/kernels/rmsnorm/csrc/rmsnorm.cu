@@ -21,6 +21,7 @@
 // input byte once. Nothing is allocated; the launch goes on the caller's
 // stream.
 #include "common.cuh"
+#include "launch.cuh"
 
 namespace {
 

@@ -73,6 +73,7 @@
 //   mma.sync fragment layout so that one epilogue serves both; decays by
 //   expf.
 #include "common.cuh"
+#include "launch.cuh"
 
 namespace {
 

@@ -15,7 +15,6 @@ kernel's three passes and its split-bf16 products in plain PyTorch; no
 dispatch reaches it."""
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -24,7 +23,6 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _MAX_P, _MAX_N, _MAX_CHUNK = 64, 128, 4096
 
 
@@ -256,15 +254,14 @@ def ssd_scan(x, dt, A, Bm, Cm, D, init_state: Optional[torch.Tensor] = None,
                          device=x.device)
     cum = torch.empty((b, h, nc, chunk), dtype=torch.float32,
                       device=x.device)
-    fn = _build.function("ssd_scan_launch", _ARGTYPES)
-    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-             Cm.data_ptr(), D.data_ptr(),
-             None if init_state is None else init_state.data_ptr(),
-             y.data_ptr(), final.data_ptr(), states[0].data_ptr(),
-             states[1].data_ptr(), cum.data_ptr(), b, s, h, p, g, n, chunk,
-             int(x.dtype == torch.bfloat16),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "ssd_scan")
+    _build.module().ssd_scan(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), D.data_ptr(),
+        None if init_state is None else init_state.data_ptr(),
+        y.data_ptr(), final.data_ptr(), states[0].data_ptr(),
+        states[1].data_ptr(), cum.data_ptr(), b, s, h, p, g, n, chunk,
+        int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
     ssd_scan.launches += 1
     return y, final
 

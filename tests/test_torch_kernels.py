@@ -152,7 +152,7 @@ def test_cpu_tensors_never_build(monkeypatch):
     build (this machine may have no nvcc and no card)."""
     def refuse(*a, **k):
         raise AssertionError("kernel build touched by a CPU call")
-    for name in ("build", "library", "function", "module"):
+    for name in ("build", "module"):
         monkeypatch.setattr(_build, name, refuse)
     rng = np.random.default_rng(4)
     q = torch.from_numpy(rng.standard_normal((1, 16, 4, 32))).float()
@@ -273,6 +273,25 @@ def test_build_digest_covers_every_kernel_header(tmp_path):
     assert _build._digest(flags, root) != before
 
 
+@pytest.mark.parametrize("which", [0, 1])
+def test_build_name_covers_the_python_it_is_imported_by(monkeypatch, which):
+    """The library is imported as a CPython extension module, so a build
+    kept from another interpreter must not be reused: Python's include
+    directory (its version) and the extension suffix (its ABI) name the
+    library, beside the sources and flags. No nvcc needed."""
+    import sysconfig
+    abi = _build.python_abi()
+    assert abi == [sysconfig.get_paths()["include"],
+                   sysconfig.get_config_var("EXT_SUFFIX") or ""]
+    before = _build.library_name()
+    other = list(abi)
+    other[which] += "-other"
+    monkeypatch.setattr(_build, "python_abi", lambda: other)
+    assert _build.library_name() != before
+    monkeypatch.setattr(_build, "python_abi", lambda: abi)
+    assert _build.library_name() == before
+
+
 @pytest.mark.parametrize("b,sq,hq,block_q,tiles", [
     (1, 64, 32, 64, 32),          # llama2-7b buckets, 32 heads
     (1, 128, 32, 64, 64),
@@ -342,7 +361,9 @@ def test_rmsnorm_checks_refuse_what_the_kernel_does_not_take(what, err,
 def test_kernel_sources_include_no_torch_headers():
     """Every CUDA source builds with nvcc alone: the CPython binding
     includes Python.h, no source includes PyTorch's headers (minutes to
-    compile), and Python's include directory is on the include path."""
+    compile), and Python's include directory is on the include path. Every
+    kernel's source includes ``launch.cuh``, the declarations the binding
+    calls, so the compiler holds each entry point to its declaration."""
     import re
     import sysconfig
     srcs = _build.sources() + _build.headers()
@@ -351,3 +372,8 @@ def test_kernel_sources_include_no_torch_headers():
         for inc in re.findall(r'#include\s*[<"]([^>"]+)[>"]', p.read_text()):
             assert not inc.startswith(("torch/", "ATen/", "c10/")), (p, inc)
     assert sysconfig.get_paths()["include"] in _build.include_flags()
+    shared = _build.KERNELS_DIR / "csrc"
+    kernels = [p for p in _build.sources() if p.parent != shared]
+    assert len(kernels) == 4
+    for p in kernels:
+        assert '#include "launch.cuh"' in p.read_text(), p
