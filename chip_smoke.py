@@ -7,7 +7,8 @@
    for fp32 matmuls and convolutions.
 2. Builds the port's CUDA kernels from ``src/repro_torch/kernels/**/csrc``
    with nvcc for sm_90a, and prints the build time and ptxas's register and
-   spill report.
+   spill report, with a ``[build] B1 ptxas`` line of B1's instantiations;
+   a spill in any of them raises.
 3. Kernel phases: each kernel (B1 paged decode, B2 flash attention, B3
    RMSNorm) runs through its wrapper on the card at the shapes of the
    paths below (llama2-7b's, then mamba2-1.3b's and zamba2-7b's), is held
@@ -22,14 +23,25 @@
    the host-loop times, so a launch-bound case shows as one. The bound is
    the larger of the bytes it must move over 3.35 TB/s and its operations
    over the peak rate of their type (989 TFLOP/s bf16 tensor core, 67
-   TFLOP/s fp32), the H100 SXM datasheet figures. B2 runs every prefill bucket (64-1024), GQA
-   32/8, D = 64, 112 (B=2) and 128, a ragged Sq and a q_offset/kv_len cut
-   mid-tile in bf16 and fp32. B1 and B2 are also held against their plain
-   versions on rows that see no key (the mean of V). B3's wrapper must
-   refuse each of a list of bad CUDA inputs with its earlier error type,
-   and a line per bf16 shape splits its host time per call (checks,
-   stream, allocation, launch; each beside what it replaced) beside
-   ``F.rms_norm``'s.
+   TFLOP/s fp32), the H100 SXM datasheet figures. B2 runs every prefill
+   bucket (64-1024), GQA 32/8, D = 64, 112 (B=2) and 128, a ragged Sq
+   and a q_offset/kv_len cut mid-tile in bf16 and fp32. B1 and B2 are
+   also held against their plain versions on rows that see no key (the
+   mean of V). B1 is timed cold:
+   each call reads the next of enough clones of the pools that a cycle
+   reads more than twice the 50 MB L2, as each layer of the engine reads
+   its own pool; its device time comes from CUDA events around calls
+   queued behind a spin (its two kernels overlap by design, see
+   ``paged_case``) and a time under the bound raises. Its cases: batch 1,
+   batch 8 (32/32 and GQA 32/8 in fp32, 32/32 in bf16), then, after every
+   other case so the earlier seeded draws stay, the main path's ragged
+   batch (lengths 960, 544, 160 and five idle slots of length 1 on the
+   null page); a ``[paged_decode split]`` line per case gives the split
+   plan, each kernel's profiler time and the wrapper's host time. B3's
+   wrapper must refuse each of a list of bad CUDA inputs with its earlier
+   error type, and a line per bf16 shape splits its host time per call
+   (checks, stream, allocation, launch; each beside what it replaced)
+   beside ``F.rms_norm``'s.
 4. Small reference check: the port's engine on the card and on the CPU
    (plain versions) generate the same tokens for a reduced fp32 model,
    one-shot and chunked prefill.
@@ -76,8 +88,10 @@ printing any result.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -110,6 +124,13 @@ PORT_KERNELS = {"paged_decode_attention": "paged_decode_kernel",
                 "flash_attention": "flash_fwd_", "rmsnorm": "rmsnorm_kernel",
                 "ssd_scan": "ssd_scan_kernel"}
 SSD_PASSES = 3                             # B4's kernels per call
+L2_BYTES = 50 * 2 ** 20                    # H100 L2 cache
+# B1's cases at the engine's pool, (batch, Hq, Hkv, type); then the main
+# path's ragged batch: PagedEngine decodes all 8 slots, an idle one with
+# length 1 on the null page
+B1_CASES = ((1, 32, 32, "fp32"), (8, 32, 32, "fp32"), (8, 32, 8, "fp32"),
+            (8, 32, 32, "bf16"))
+MAIN_PATH_LENGTHS = (960, 544, 160, 1, 1, 1, 1, 1)
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)     # SSD final state, as the
                                            # reference's test_ssd_sweep
 
@@ -238,6 +259,135 @@ def queued_ms(torch, fn, n: int = 20) -> float:
         cycles *= 4
     raise AssertionError("queued_ms: the spin kernel never outlasted the "
                          "launches")
+
+
+def cold_sets(tensors, read_bytes: float) -> list:
+    """``tensors`` and enough clones of them that a cycle of calls, each
+    reading ``read_bytes`` of its own set, reads more than twice the 50 MB
+    L2: a call then finds its inputs cold, as each layer of the engine
+    finds its own pool."""
+    n = max(2, int(2 * L2_BYTES // read_bytes) + 1)
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors)
+                               for _ in range(n - 1)]
+
+
+def cycling(fn, sets):
+    """A call of ``fn`` on the next of ``sets`` each time."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def pass_ms(torch, fn, stem: str, n: int = 5) -> dict:
+    """Device ms per call of each kernel named ``<stem>_<name>`` (the
+    passes of B4, the splits and merge of B1; ``<stem>`` alone for a kernel
+    of one pass), from torch.profiler over ``n`` calls, with the launches
+    it saw."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count \
+                and stem in e.key:
+            name = e.key.split(stem, 1)[1].lstrip("_")
+            name = name.split("<")[0].split("(")[0] or stem
+            out[name] = {"ms": e.self_device_time_total / e.count / 1e3,
+                         "seen": e.count}
+    return out
+
+
+def paged_work(q, kp, bt, lengths, kind):
+    """Bytes and operations (by type) of the least work of one B1 call:
+    the live tokens' K and V, q and out, the block table and the lengths
+    each moved once; QK and PV over the live tokens. The splits' partials
+    are the kernel's own scratch and are not counted."""
+    b, hq, hd = q.shape
+    hkv = kp.shape[2]
+    toks = float(lengths.sum())
+    esz = q.element_size()
+    nbytes = (2 * toks * hkv * hd + 2 * b * hq * hd) * esz \
+        + bt.numel() * 4 + b * 4
+    return nbytes, {kind: 4.0 * toks * hq * hd}
+
+
+def paged_case(torch, timer, cases, q, kp, vp, bt, lengths, kind,
+               case) -> None:
+    """One B1 case: held against the plain version, then timed cold (each
+    call on the next of ``cold_sets``' pools) on the host loop and as
+    device time per call, beside the plain version (warm); logs the split
+    plan, each of its two kernels' profiler time and the wrapper's host
+    time per call, and raises if the device time falls under the bound.
+    The device time is ``queued_ms``'s (calls back to back behind a spin):
+    the merge kernel is a programmatic dependent of the split kernel and is
+    staged while that one drains, so the profiler's two durations overlap
+    and their sum would count the overlap twice."""
+    from repro_torch.kernels.decode_attention import (paged_decode_attention,
+                                                      paged_decode_ref,
+                                                      split_plan)
+    b, hq, hd = q.shape
+    _, page, hkv, _ = kp.shape
+    max_pages = bt.shape[1]
+    what = f"paged decode {case} {kind}"
+    err = check_close(torch, paged_decode_attention(q, kp, vp, bt, lengths),
+                      paged_decode_ref(q, kp, vp, bt, lengths), kind, what)
+    nbytes, ops = paged_work(q, kp, bt, lengths, kind)
+    read = 2 * float(lengths.sum()) * hkv * hd * q.element_size()
+    pools = cold_sets((kp, vp), read)
+    kern = cycling(lambda k, v: paged_decode_attention(q, k, v, bt, lengths),
+                   pools)
+    stem = PORT_KERNELS["paged_decode_attention"]
+    pages, splits = split_plan(b, hkv, max_pages, page)
+    record(cases, "paged_decode_attention", case, kind, err, timer(kern),
+           timer(lambda: paged_decode_ref(q, kp, vp, bt, lengths)), None,
+           nbytes, ops,
+           dev=(queued_ms(torch, kern, n=50), None))
+    span, cap = pages * page, max_pages * page
+    live = sum(-(-(n if n > 0 else cap) // span)
+               for n in lengths.clamp(max=cap).tolist()) * hkv
+    log(f"[paged_decode split] {case} {kind}: " + json.dumps({
+        "pages_per_split": pages, "positions_per_split": span,
+        "splits": splits, "ctas": splits * hkv * b, "live_ctas": live,
+        "cold_pool_sets": len(pools),
+        "kernels_ms": pass_ms(torch, kern, stem),
+        "wrapper_host_us": host_us(torch, kern)}))
+    row = cases[-1]
+    if row["device_ms"] < row["bound_ms"]:
+        raise AssertionError(f"{what}: device time {row['device_ms']} ms "
+                             f"under its bound {row['bound_ms']} ms")
+
+
+def ptxas_report(text: str, stem: str) -> dict:
+    """Registers and spill bytes of each compiled function whose name holds
+    ``stem``, from ptxas's ``-v`` report (names cut to the stem and the
+    mangled template arguments)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Function properties for |entry function ')"
+                      r"([A-Za-z0-9_]+)", line)
+        if m:
+            name = m.group(1)
+            name = (name[name.index(stem):].split("Ev")[0]
+                    if stem in name else None)
+            if name:
+                out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
 
 
 def check_close(torch, got, want, kind: str, what: str,
@@ -447,47 +597,12 @@ def kernel_phases(torch, F, timer):
                  (1, 256, 768, 32, 32, 128, "fp32", 512, 768),
                  (1, 256, 768, 32, 32, 128, "bf16", 512, 700)))
 
-    # ---- B1 paged decode over the engine's page pool ----------------------
-    n_pages, page, max_pages, hd = 512, 16, 64, 128
-    for b, hq, hkv, kind in ((1, 32, 32, "fp32"), (8, 32, 32, "fp32"),
-                             (8, 32, 8, "fp32"), (8, 32, 32, "bf16")):
-        dt = torch.bfloat16 if kind == "bf16" else torch.float32
-        q = randn((b, hq, hd), dt)
-        kp = randn((n_pages, page, hkv, hd), dt)
-        vp = randn((n_pages, page, hkv, hd), dt)
-        lengths = torch.randint(1, max_pages * page + 1, (b,), generator=gen,
-                                device=dev, dtype=torch.int32)
-        lengths[0] = max_pages * page                      # one full seq
-        bt = torch.zeros((b, max_pages), dtype=torch.int32, device=dev)
-        perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
-        used = 0
-        for i in range(b):                   # distinct pages; rest -> null
-            n = -(-int(lengths[i]) // page)
-            if used + n > n_pages - 1:
-                used = 0
-            bt[i, :n] = perm[used:used + n].to(torch.int32)
-            used += n
-        err = check_close(
-            torch, paged_decode_attention(q, kp, vp, bt, lengths),
-            paged_decode_ref(q, kp, vp, bt, lengths), kind,
-            f"paged decode B={b} {hq}/{hkv} {kind}")
-
-        def kern():
-            return paged_decode_attention(q, kp, vp, bt, lengths)
-        k_ms = timer(kern)
-        p_ms = timer(lambda: paged_decode_ref(q, kp, vp, bt, lengths))
-        toks = float(lengths.sum())
-        esz = q.element_size()
-        nbytes = (2 * toks * hkv * hd + 2 * b * hq * hd) * esz \
-            + bt.numel() * 4 + b * 4
-        flops = 4.0 * toks * hq * hd
-        record(cases, "paged_decode_attention",
-               f"B={b} H={hq}/{hkv} D={hd} page={page} max_pages={max_pages}"
-               f" lengths<={max_pages * page}", kind, err, k_ms, p_ms, None,
-               nbytes, {kind: flops},
-               dev=(device_ms(torch, kern,
-                              stem=PORT_KERNELS["paged_decode_attention"]),
-                    None))
+    # ---- B1 paged decode over the engine's page pool, timed cold ----------
+    for b, hq, hkv, kind in B1_CASES:
+        inputs = paged_inputs(torch, gen, b, hq, hkv, kind)
+        paged_case(torch, timer, cases, *inputs, kind,
+                   f"B={b} H={hq}/{hkv} D=128 page=16 max_pages=64 "
+                   f"lengths<=1024")
 
     # mamba2-1.3b (d 2048: 4 x 2048 prefill rows, batch-4 decode rows) and
     # zamba2-7b (d 3584: 2 x 1024 prefill rows, batch-2 decode rows; its
@@ -526,7 +641,51 @@ def kernel_phases(torch, F, timer):
                           f"paged decode lengths=[0, 33, 64] {kind}")
         log(f"[c7] paged_decode_attention lengths=[0, 33, 64] {kind}: max "
             f"abs err {err:.3g} against the plain version")
+
+    # ---- B1 at the main path's ragged batch (last: the draws above stay)
+    inputs = paged_inputs(torch, gen, 8, 32, 32, "fp32", MAIN_PATH_LENGTHS)
+    paged_case(torch, timer, cases, *inputs, "fp32",
+               "B=8 H=32/32 D=128 page=16 max_pages=64 lengths=960,544,160"
+               " +5 idle")
     return cases
+
+
+def paged_inputs(torch, gen, b, hq, hkv, kind, lengths=None):
+    """A B1 case on the engine's pool (512 pages of 16 positions, 64 pages
+    a sequence, D 128), on the card: q, the K and V pools, the block table
+    and the lengths, drawn from ``gen``. Without ``lengths`` they are
+    random in [1, 1024] with the first sequence full; with them, a length
+    of 1 is an idle slot (an all-zero block-table row: the null page, as
+    ``PagedEngine._decode`` passes it). Live sequences get distinct pages."""
+    n_pages, page, max_pages, hd = 512, 16, 64, 128
+    dev = "cuda"
+    dt = torch.bfloat16 if kind == "bf16" else torch.float32
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+    q = randn((b, hq, hd))
+    kp = randn((n_pages, page, hkv, hd))
+    vp = randn((n_pages, page, hkv, hd))
+    idle = [False] * b
+    if lengths is None:
+        lengths = torch.randint(1, max_pages * page + 1, (b,), generator=gen,
+                                device=dev, dtype=torch.int32)
+        lengths[0] = max_pages * page                      # one full seq
+    else:
+        idle = [n == 1 for n in lengths]
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    bt = torch.zeros((b, max_pages), dtype=torch.int32, device=dev)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    used = 0
+    for i in range(b):                       # distinct pages; rest -> null
+        if idle[i]:
+            continue
+        n = -(-int(lengths[i]) // page)
+        if used + n > n_pages - 1:
+            used = 0
+        bt[i, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    return q, kp, vp, bt, lengths
 
 
 def ssd_bound_work(b, s, h, p, g, n, q, kind, init):
@@ -552,29 +711,6 @@ def ssd_bound_work(b, s, h, p, g, n, q, kind, init):
         + b * s * h * 4 + 2 * h * 4 \
         + (2 if init else 1) * b * h * p * n * 4
     return nbytes, ops
-
-
-def ssd_pass_ms(torch, fn, n: int = 5) -> dict:
-    """Device ms per call of each of B4's passes (kernels named
-    ``ssd_scan_kernel_*``), from torch.profiler over ``n`` calls, with the
-    launches it saw."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.count \
-                and PORT_KERNELS["ssd_scan"] in e.key:
-            name = e.key.split(PORT_KERNELS["ssd_scan"] + "_")[1]
-            name = name.split("<")[0].split("(")[0]
-            out[name] = {"ms": e.self_device_time_total / e.count / 1e3,
-                         "seen": e.count}
-    return out
 
 
 def ssd_kernel_phase(torch, timer):
@@ -626,7 +762,7 @@ def ssd_kernel_phase(torch, timer):
         case = f"B={b} S={s} H={h} P={p} G={g} N={n} Q={q}" + (
             " init" if init else "")
         log(f"[ssd_scan passes] {case} {kind}: "
-            + json.dumps(ssd_pass_ms(torch, kern)))
+            + json.dumps(pass_ms(torch, kern, PORT_KERNELS["ssd_scan"])))
         record(cases, "ssd_scan", case, kind, err, timer(kern),
                timer(plain), None, nbytes, ops,
                tol={"y": TOL[kind], "state": STATE_TOL},
@@ -1084,6 +1220,13 @@ def main() -> int:
         if any(w in line for w in ("registers", "spill", "==",
                                    "Function properties", "arning")):
             log("[build] " + line.strip())
+    b1 = ptxas_report(_build.ptxas_log(),
+                      PORT_KERNELS["paged_decode_attention"])
+    log("[build] B1 ptxas: " + json.dumps(b1))
+    if _build.build_seconds() is not None and (len(b1) < 2 or any(
+            v.get("spill_stores", 1) or v.get("spill_loads", 1)
+            for v in b1.values())):
+        raise AssertionError(f"B1: ptxas spills, or no report: {b1}")
 
     timer = Timer(torch)
     cases = kernel_phases(torch, F, timer)

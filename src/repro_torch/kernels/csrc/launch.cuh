@@ -7,12 +7,14 @@
 
 extern "C" {
 
-// B1: one-token attention over a paged KV pool (decode_attention/csrc)
+// B1: one-token attention over a paged KV pool, split across CTAs
+// (decode_attention/csrc); `part` is the splits' fp32 workspace
 int paged_decode_launch(const void* q, const void* k_pages,
                         const void* v_pages, void* out,
-                        const void* block_table, const void* lengths, int B,
-                        int Hq, int Hkv, int D, int page, int max_pages,
-                        float scale, int bf16, void* stream);
+                        const void* block_table, const void* lengths,
+                        void* part, int B, int Hq, int Hkv, int D, int page,
+                        int max_pages, int split_pages, float scale,
+                        int bf16, void* stream);
 
 // B2: causal/offset flash attention forward (flash_attention/csrc)
 int flash_attention_launch(const void* q, const void* k, const void* v,

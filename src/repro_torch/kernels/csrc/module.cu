@@ -63,16 +63,17 @@ PyObject* result(int err, const char* name) {
   Py_RETURN_NONE;
 }
 
-// paged_decode(q, k_pages, v_pages, out, block_table, lengths, B, Hq, Hkv,
-//              D, page, max_pages, scale, bf16, stream)
+// paged_decode(q, k_pages, v_pages, out, block_table, lengths, part, B,
+//              Hq, Hkv, D, page, max_pages, split_pages, scale, bf16,
+//              stream)
 PyObject* paged_decode(PyObject*, PyObject* const* a, Py_ssize_t n) {
   const char* name = "paged_decode_attention";
-  const Args in(a, n, "ppppppiiiiiifip", name);
+  const Args in(a, n, "pppppppiiiiiiifip", name);
   if (!in.ok) return nullptr;
   return result(paged_decode_launch(
                     in.p(0), in.p(1), in.p(2), in.p(3), in.p(4), in.p(5),
-                    in.i(6), in.i(7), in.i(8), in.i(9), in.i(10), in.i(11),
-                    in.f(12), in.i(13), in.p(14)),
+                    in.p(6), in.i(7), in.i(8), in.i(9), in.i(10), in.i(11),
+                    in.i(12), in.i(13), in.f(14), in.i(15), in.p(16)),
                 name);
 }
 

@@ -1,7 +1,7 @@
-from repro_torch.kernels.decode_attention.ops import (attend_partial,
-                                                      merge_partials,
-                                                      paged_decode_attention,
-                                                      paged_decode_ref)
+from repro_torch.kernels.decode_attention.ops import (
+    attend_partial, merge_partials, paged_decode_attention, paged_decode_ref,
+    paged_decode_split_ref, split_plan)
 
-__all__ = ["paged_decode_attention", "paged_decode_ref", "attend_partial",
+__all__ = ["paged_decode_attention", "paged_decode_ref",
+           "paged_decode_split_ref", "split_plan", "attend_partial",
            "merge_partials"]

@@ -5,7 +5,10 @@ then one masked softmax per GQA group in fp32), and the staged-cache
 decode's plain building blocks ``attend_partial`` / ``merge_partials``.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel
-in ``csrc/paged_decode.cu`` or raises."""
+in ``csrc/paged_decode.cu`` or raises. The kernel splits each sequence's
+walk into runs of pages (``split_plan``) and merges the runs' partial
+softmax states; ``paged_decode_split_ref`` repeats that partition and
+merge in plain PyTorch, and no dispatch reaches it."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -17,6 +20,29 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GROUP = 8
+_SPLIT_POSITIONS = 64     # a split's least run of positions
+_MAX_SPLIT_PAGES = 64     # block-table entries the kernel holds a split
+_MAX_SPLITS = 256         # splits the kernel merges a sequence
+_MAX_CTAS = 2048          # above this the splits grow (15.5 an H100 SM)
+
+
+def split_plan(b: int, hkv: int, max_pages: int, page: int):
+    """(pages a split covers, splits a sequence) of kernel B1's grid
+    (splits, Hkv, B). A split is ~64 positions (at least one page), so the
+    live splits of a batch with 1-3 live sequences of hundreds of positions
+    still put several CTAs on every SM; it doubles while the grid would
+    exceed 2048 CTAs (up to 512 positions) or a sequence 256 splits. Split
+    s covers positions [s * pages * page, (s + 1) * pages * page) of the
+    block table's max_pages * page; the last split may be cut short."""
+    pages = min(max(1, _SPLIT_POSITIONS // page), max_pages)
+
+    def splits():
+        return -(-max_pages // pages)
+    while ((b * hkv * splits() > _MAX_CTAS and 2 * pages * page <= 512)
+           or splits() > _MAX_SPLITS) \
+            and 2 * pages <= min(max_pages, _MAX_SPLIT_PAGES):
+        pages *= 2
+    return pages, splits()
 
 
 def attend_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,6 +113,49 @@ def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def paged_decode_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_table: torch.Tensor,
+                           lengths: torch.Tensor,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Kernel B1's partition and merge in plain PyTorch (fp32): each split
+    of ``split_plan`` gives a partial (m, l, o) over its live positions (a
+    split at or past the sequence's length gives m = -inf, l = 0, o = 0),
+    and ``merge_partials`` merges them in order, as the kernel's merge
+    does; returns o / l in q's type. A length-0 row scores every position
+    of its block-table row 0, so the merge gives the mean of V (C7).
+    Shapes as ``paged_decode_ref``."""
+    b, hq, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    max_pages = block_table.shape[1]
+    pages, n_splits = split_plan(b, hkv, max_pages, page)
+    cap, span = max_pages * page, pages * page
+    g = hq // hkv
+    bt = block_table.long()
+    k = k_pages[bt].reshape(b, cap, hkv, d).float()
+    v = v_pages[bt].reshape(b, cap, hkv, d).float()
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bkgd,bskd->bkgs",
+                          q.reshape(b, hkv, g, d).float(), k) * scale
+    lengths = lengths.to(q.device).long()
+    uniform = lengths <= 0
+    eff = torch.where(uniform, cap, lengths.clamp(max=cap))
+    logits = torch.where(uniform[:, None, None, None],
+                         torch.zeros_like(logits), logits)
+    live_pos = torch.arange(cap, device=q.device)[None, :] < eff[:, None]
+    logits = logits.masked_fill(~live_pos[:, None, None, :], -torch.inf)
+    parts = []
+    for s in range(n_splits):
+        lo, hi = s * span, min((s + 1) * span, cap)
+        seg = logits[..., lo:hi]                       # (B, Hkv, G, span)
+        live = (lo < eff)[:, None, None]
+        m = torch.where(live, seg.amax(dim=-1), -torch.inf)
+        p = torch.exp(seg - torch.where(live, m, 0.0)[..., None])
+        o = torch.einsum("bkgs,bskd->bkgd", p, v[:, lo:hi])
+        parts.append((m.reshape(b, hq), p.sum(dim=-1).reshape(b, hq),
+                      o.reshape(b, hq, d)))
+    return merge_partials(parts).to(q.dtype)
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_table: torch.Tensor,
                            lengths: torch.Tensor, *,
@@ -120,6 +189,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                         "expected")
     if block_table.dtype != torch.int32 or lengths.dtype != torch.int32 \
             or block_table.dim() != 2 or block_table.shape[0] != b \
+            or block_table.shape[1] == 0 \
             or lengths.shape != (b,):
         raise ValueError("paged_decode_attention: block_table (B, max_pages) "
                          "and lengths (B,) must be int32")
@@ -130,11 +200,20 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("paged_decode_attention: q and the pools must be "
                          "16-byte aligned (vector loads of whole rows)")
+    max_pages = block_table.shape[1]
+    pages, n_splits = split_plan(b, hkv, max_pages, page)
+    if n_splits > _MAX_SPLITS:
+        raise ValueError(f"paged_decode_attention: {max_pages} pages of "
+                         f"{page} a sequence need {n_splits} splits; the "
+                         f"kernel merges up to {_MAX_SPLITS}")
     out = torch.empty_like(q)
+    # the splits' partials: o (B, Hq, splits, D), then (m, l)
+    part = torch.empty((b * hq * n_splits * (d + 2),), dtype=torch.float32,
+                       device=q.device)
     _build.module().paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
-        block_table.data_ptr(), lengths.data_ptr(), b, hq, hkv, d, page,
-        block_table.shape[1],
+        block_table.data_ptr(), lengths.data_ptr(), part.data_ptr(), b, hq,
+        hkv, d, page, max_pages, pages,
         float(scale if scale is not None else d ** -0.5),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -144,5 +223,6 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 paged_decode_attention.launches = 0
 
-__all__ = ["paged_decode_attention", "paged_decode_ref", "attend_partial",
+__all__ = ["paged_decode_attention", "paged_decode_ref",
+           "paged_decode_split_ref", "split_plan", "attend_partial",
            "merge_partials"]

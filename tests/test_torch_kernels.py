@@ -18,7 +18,8 @@ from repro.kernels.rmsnorm import (rmsnorm_pallas,  # noqa: E402
                                    rmsnorm_ref as jax_rmsnorm_ref)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    paged_decode_attention, paged_decode_ref)
+    paged_decode_attention, paged_decode_ref, paged_decode_split_ref,
+    split_plan)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_dense_ref, flash_attention, flash_attention_ref)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
@@ -123,6 +124,114 @@ def test_paged_decode_sweep(b, hq, hkv, d, page, npages, maxp, dtype):
     _close(got, pallas, dtype)
     _close(got, jax_paged_ref(qj, kj, vj, jnp.asarray(bt),
                               jnp.asarray(lengths)), dtype)
+
+
+# test_paged_decode_sweep's grid, then shapes whose walk spans several of
+# kernel B1's splits (split_plan: 64 positions at page 16, one page of 64,
+# two pages of 32), the last split cut short
+SPLIT_GRID = [
+    (2, 8, 2, 64, 16, 32, 4),
+    (4, 4, 4, 32, 8, 16, 8),
+    (1, 16, 1, 128, 32, 8, 2),
+    (2, 8, 2, 64, 16, 32, 9),
+    (3, 4, 4, 32, 64, 12, 3),
+    (2, 16, 2, 128, 32, 16, 5),
+]
+
+
+def _paged_inputs(rng, b, hq, hkv, d, page, npages, maxp, dtype, lengths):
+    qj, qt = _pair(rng, (b, hq, d), dtype)
+    kj, kt = _pair(rng, (npages, page, hkv, d), dtype)
+    vj, vt = _pair(rng, (npages, page, hkv, d), dtype)
+    bt = rng.integers(0, npages, (b, maxp)).astype(np.int32)
+    lengths = np.asarray(lengths, np.int32)
+    return ((qj, kj, vj, jnp.asarray(bt), jnp.asarray(lengths)),
+            (qt, kt, vt, torch.from_numpy(bt), torch.from_numpy(lengths)))
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,page,npages,maxp", SPLIT_GRID)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_paged_decode_split_ref_sweep(b, hq, hkv, d, page, npages, maxp,
+                                      dtype):
+    """B1's partition into splits and its merge (``paged_decode_split_ref``)
+    against the Pallas kernel in interpret mode and the jnp oracle, at the
+    unchanged tolerances."""
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(1, maxp * page + 1, (b,))
+    J, T = _paged_inputs(rng, b, hq, hkv, d, page, npages, maxp, dtype,
+                         lengths)
+    got = paged_decode_split_ref(*T)
+    assert got.dtype == T[0].dtype and got.shape == T[0].shape
+    _close(got, paged_decode_attention_pallas(*J, interpret=True), dtype)
+    _close(got, jax_paged_ref(*J), dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,page,npages,maxp", SPLIT_GRID[3:])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_paged_decode_split_ref_at_split_edges(b, hq, hkv, d, page, npages,
+                                               maxp, dtype):
+    """Lengths at the edges of the splits: 1, one and two whole splits and
+    one past each, the block table's last position, and 0 (no visible
+    position: the mean of V over the whole row, as the jnp oracle gives;
+    the Pallas kernel, which skips every page of such a row, is held to
+    the other rows only)."""
+    span = split_plan(b, hkv, maxp, page)[0] * page
+    cap = maxp * page
+    lengths = [1, span, span + 1, 2 * span, 2 * span + 1, cap, 0]
+    assert all(n <= cap for n in lengths)
+    rng = np.random.default_rng(3)
+    J, T = _paged_inputs(rng, len(lengths), hq, hkv, d, page, npages, maxp,
+                         dtype, lengths)
+    got = paged_decode_split_ref(*T)
+    _close(got, jax_paged_ref(*J), dtype)
+    _close(got[:-1], paged_decode_attention_pallas(
+        *J, interpret=True)[:-1], dtype)
+    _close(got, paged_decode_ref(*T).float(), dtype)
+
+
+@pytest.mark.parametrize("b,hkv,maxp,page", [
+    (8, 32, 64, 16),      # the engine's decode (llama2-7b, 8 slots)
+    (1, 32, 64, 16),      # one sequence
+    (8, 8, 64, 16),       # GQA 32/8
+    (64, 32, 64, 16),     # a large batch: longer splits
+    (2, 2, 9, 16), (3, 4, 3, 64), (4, 4, 8, 8), (1, 1, 2, 32),
+    (2, 1, 130, 1),       # pages of one position
+    (1, 1, 20000, 1),     # more pages than 256 splits of 64 would hold
+])
+def test_split_plan_covers_every_position_once(b, hkv, maxp, page):
+    """Split s covers [s * span, (s + 1) * span) cut at the block table's
+    end: for every length, each position before it lies in exactly one
+    split, and no split starts at or past max_pages * page. A split holds
+    at most 64 pages, and a sequence has at most 256 splits unless its
+    splits are already 64 pages (the wrapper then refuses the call)."""
+    pages, n = split_plan(b, hkv, maxp, page)
+    cap, span = maxp * page, pages * page
+    assert 1 <= pages <= 64
+    assert n <= 256 or pages == 64
+    assert (n - 1) * span < cap <= n * span
+    for length in sorted({1, span - 1, span, span + 1, cap - 1, cap}):
+        if not 0 < length <= cap:
+            continue
+        cover = np.zeros(length, np.int64)
+        for s in range(n):
+            lo, hi = s * span, min((s + 1) * span, cap, length)
+            if lo < length:
+                cover[lo:hi] += 1
+        assert (cover == 1).all()
+
+
+def test_split_plan_fills_the_card_at_the_main_path():
+    """At the engine's decode shapes (8 slots, 32 kv heads, 64 pages of 16)
+    the live splits put several CTAs on each of the H100's 132 SMs: with
+    the main path's ragged batch (960, 544, 160 and five idle slots of
+    length 1) and with one live sequence of 1024 positions beside seven
+    idle slots."""
+    pages, n = split_plan(8, 32, 64, 16)
+    span = pages * 16
+    assert n * 32 * 8 <= 4096 and pages * 16 >= 64
+    for lengths in ((960, 544, 160, 1, 1, 1, 1, 1), (1024,) + (1,) * 7):
+        live = sum(-(-length // span) for length in lengths) * 32
+        assert live >= 2 * 132, (lengths, live)
 
 
 @pytest.mark.parametrize("shape", [(4, 64), (2, 8, 128), (1, 256), (3, 96)])
