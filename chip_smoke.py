@@ -11,7 +11,9 @@
    a spill in any of them raises.
 3. Kernel phases: each kernel (B1 paged decode, B2 flash attention, B3
    RMSNorm) runs through its wrapper on the card at the shapes of the
-   paths below (llama2-7b's, then mamba2-1.3b's and zamba2-7b's), is held
+   paths below (llama2-7b's, then mamba2-1.3b's and zamba2-7b's, and
+   last qwen2-moe-a2.7b's: B3 at 2048 x 2048 and 2 x 2048, B2 at B=2,
+   1024/1024, 16/16 heads, D = 128), is held
    against its plain PyTorch version on the same inputs (allclose, rtol =
    atol = 2e-5 in fp32 and 2e-2 in bf16), and is timed with CUDA
    events beside its plain version, a PyTorch library call computing the
@@ -53,12 +55,18 @@
    and one engine iteration per worker per heartbeat, until drained. Launch
    counters are zeroed just before and read just after; every kernel must
    have run. The engines' TraceBuffers refit the Eq. 2/3 models on the
-   card's iteration times.
-6. Breakdown: one more engine on the same weights; prefill time at each
-   bucket (cold, then warm) and a decode step at batch 8 x 512-token
-   contexts, each on the host clock, with device time by kernel and the
-   count of device operations from torch.profiler. The llama2-7b weights
-   are then freed.
+   card's iteration times. The cluster makes one fp32 copy of the weights
+   for decode and hands it to both workers; the mean decode iteration is
+   printed, and on a line of its own the constant 48.7 ms, the mean of an
+   earlier run (run F) that promoted the weights on every step.
+6. Breakdown: one more engine on the same weights (and the same fp32
+   copy); prefill time at each bucket (cold, then warm) and a decode step
+   at batch 8 x 512-token contexts, each on the host clock, with device
+   time by kernel, the count of device operations and the time in
+   ``direct_copy`` kernels from torch.profiler (a copy among the decode
+   step's ten costliest device operations fails the run); the decode
+   step's wall is printed, and on a line of its own run F's 49.8 ms. The llama2-7b weights
+   and their fp32 copy are then freed.
 7. B4 (Mamba-2 SSD scan) kernel phase at the mamba2-1.3b and zamba2-7b
    prefill shapes (ragged S in fp32 and bf16, a two-group case and batch
    1 in bf16 among them), held against its plain version (y at the
@@ -78,7 +86,24 @@
    must run once per Mamba layer per prefill, B3 and, for the hybrid, B2
    must run), then device time by kernel and the count of device
    operations of one warm prefill and one decode step.
-10. Prints ``{"kernels": [...]}``, then, last,
+10. MoE generation reference check: reduced fp32 qwen2-moe-a2.7b and
+   moonshot-v1-16b-a3b at batch 8, where the decode steps' expert
+   capacity (its floor of 4) drops assignments, generate (prefill, 12
+   greedy decode steps, flushes every 8) with the same tokens and the same
+   drop counts, prefill's and each step's, on the card and on the CPU.
+11. MoE path: full-width qwen2-moe-a2.7b (14.3B random bf16 parameters,
+   seed 0; 24 layers of 60 routed experts top-4 plus shared experts)
+   through ``LM.prefill`` / ``decode_step`` / ``maybe_flush``: 2 prompts
+   of 1024 tokens and 32 greedy steps; prefill ms cold and warm, decode ms
+   per step, tokens/s, peak memory, the drops of the prefill and of each
+   decode step, launches (counters zeroed just before, read just after;
+   B2 once per layer per prefill, B3 must run), and device time by kernel
+   with the idle share of one warm prefill and one decode step. Then a
+   diagnostic prefill logs each MoE layer's drops, its busiest expert's
+   share and how alike its input tokens are, and re-runs the layer that
+   drops most on the CPU from the card's input (drops and output beside
+   the card's). Both MoE phases print their wall time.
+12. Prints ``{"kernels": [...]}``, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -101,6 +126,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM datasheet
+# an earlier run of this script (run F), whose engine promoted every
+# layer's weights to fp32 on every decode step: the main path's mean decode
+# iteration and the breakdown's decode-step wall, NVIDIA H100 80GB HBM3 at
+# 700 W
+RUN_F_MS = {"main_mean_decode": 48.7, "breakdown_decode_wall": 49.8}
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 TOL = {"fp32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
 
@@ -647,6 +677,11 @@ def kernel_phases(torch, F, timer):
     paged_case(torch, timer, cases, *inputs, "fp32",
                "B=8 H=32/32 D=128 page=16 max_pages=64 lengths=960,544,160"
                " +5 idle")
+
+    # qwen2-moe-a2.7b (d 2048, 16/16 heads of 128: 2 x 1024 prefill rows,
+    # batch-2 decode rows), after all of the above so its draws stay
+    rmsnorm_cases(((2048, 2048, "bf16", False), (2, 2048, "bf16", False)))
+    flash_cases(((2, 1024, 1024, 16, 16, 128, "bf16", 0, None),))
     return cases
 
 
@@ -925,11 +960,14 @@ def main_path(torch, counters):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log("[main] " + json.dumps(result))
+    log(f"[main] mean decode iteration {result['mean_decode_ms']:.1f} ms; "
+        f"run F (constant, an earlier run that promoted the weights every "
+        f"step): {RUN_F_MS['main_mean_decode']} ms")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
-    return launches, arch, params
+    return launches, arch, params, cluster.w32
 
 
 def _device_ms_by_kernel(torch, fn, n=3):
@@ -966,9 +1004,9 @@ def _summary(profile, wall_ms):
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 
-def breakdown(torch, arch, params, batch=8, prompt=512, steps=10):
+def breakdown(torch, arch, params, w32, batch=8, prompt=512, steps=10):
     """Where an iteration's time goes, at fixed shapes on a fresh engine
-    sharing the main path's weights: prefill at each bucket (host clock
+    sharing the main path's weights and their fp32 copy ``w32``: prefill at each bucket (host clock
     around ``LM.prefill`` ending in a host read, cold then warm) with
     device time by kernel at the 64 and 1024 buckets, and decode at ``batch``
     sequences of ``prompt``-token contexts."""
@@ -976,7 +1014,7 @@ def breakdown(torch, arch, params, batch=8, prompt=512, steps=10):
 
     from repro_torch.core.request import Request
     from repro_torch.serving.engine import EngineConfig, PagedEngine
-    eng = PagedEngine(arch, params, EngineConfig(), device="cuda")
+    eng = PagedEngine(arch, params, EngineConfig(), device="cuda", w32=w32)
     rng = np.random.default_rng(1)
 
     def prefill(s):
@@ -1013,10 +1051,20 @@ def breakdown(torch, arch, params, batch=8, prompt=512, steps=10):
         t0 = time.perf_counter()
         eng.step()
         times.append(1e3 * (time.perf_counter() - t0))
-    dec = _summary(_device_ms_by_kernel(torch, eng.step),
-                   float(np.mean(times)))
-    dec.update(batch=batch, context=prompt, step_ms_min=min(times))
+    prof = _device_ms_by_kernel(torch, eng.step)
+    dec = _summary(prof, float(np.mean(times)))
+    dec.update(batch=batch, context=prompt, step_ms_min=min(times),
+               step_ms=times,
+               direct_copy_ms=sum(v for k, v in prof[0].items()
+                                  if "direct_copy" in k))
     log("[breakdown] decode " + json.dumps(dec))
+    log(f"[breakdown] decode step wall {dec['wall_ms']:.1f} ms; run F "
+        f"(constant, an earlier run that promoted the weights every step): "
+        f"{RUN_F_MS['breakdown_decode_wall']} ms")
+    if any("direct_copy" in k for k, _ in dec["top_kernels_ms"]):
+        raise AssertionError("breakdown: a copy is among the decode step's "
+                             "top device operations (weights promoted per "
+                             "step?)")
 
 
 def _to_cuda(tree):
@@ -1033,37 +1081,51 @@ def _recent_len(cache) -> int:
     return 0
 
 
-def generate(torch, model, params, toks, steps, s_max, step_ms=None):
+def generate(torch, model, params, toks, steps, s_max, step_ms=None,
+             drops=None):
     """Greedy: ``LM.prefill`` then ``steps`` x ``LM.decode_step``, running
     ``LM.maybe_flush`` whenever the recent buffers are full. Returns the
     tokens (B, 1 + steps); appends each step's host-clock ms (ending in a
-    sync) to ``step_ms`` when given."""
-    logits, cache = model.prefill(params, toks, s_max=s_max)
+    sync) to ``step_ms`` when given, and the MoE layers' dropped
+    assignments of the prefill and of each step (device scalars) to
+    ``drops`` when given."""
+    aux = drops is not None
+    logits, cache, *rest = model.prefill(params, toks, s_max=s_max,
+                                         return_aux=aux)
     out = [logits.argmax(-1)]
+    if aux:
+        drops.append(rest[0][1])
     for _ in range(steps):
         t0 = time.perf_counter()
         if _recent_len(cache) == model.recent_window:
             cache = model.maybe_flush(cache)
-        logits, cache = model.decode_step(params, cache, out[-1])
+        logits, cache, *rest = model.decode_step(params, cache, out[-1],
+                                                 return_aux=aux)
         out.append(logits.argmax(-1))
+        if aux:
+            drops.append(rest[0][1])
         if step_ms is not None:
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
     return torch.stack(out, dim=1)
 
 
-def generation_reference_check(torch):
-    """Reduced fp32 mamba2-1.3b and zamba2-7b generate on the card (kernels
-    B2-B4) and on the CPU (plain versions): prefill, then 12 greedy decode
-    steps with a recent window of 8, so maybe_flush runs. The tokens must be
-    identical. A 45-token prompt is not a multiple of the reduced SSD chunk
-    (32): the CPU takes the sequential oracle there, the card the ragged
-    kernel."""
+def generation_reference_check(torch, archs, batch, prompts):
+    """Reduced fp32 models (``archs``: (name, layers), d_model 256)
+    generate on the card (kernels B2-B4) and on the CPU (plain versions):
+    ``batch`` prompts of each length in ``prompts``, then 12 greedy decode
+    steps with a recent window of 8, so maybe_flush runs. The tokens must
+    be identical; for a MoE model so must the drop counts of the prefill
+    and of every step, and some decode step must drop. A 45-token prompt
+    is not a multiple of the reduced SSD chunk (32): the CPU takes the
+    sequential oracle there, the card the ragged kernel. At batch 8 a MoE
+    decode step's expert capacity is its floor of 4 for 16 assignments
+    over 8 experts."""
     import dataclasses
 
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models.model import LM
-    for name, n_layers in (("mamba2-1.3b", 4), ("zamba2-7b", 5)):
+    for name, n_layers in archs:
         arch = dataclasses.replace(
             reduced(get_arch(name), n_layers=n_layers, d_model=256,
                     vocab=512), param_dtype="float32")
@@ -1071,18 +1133,31 @@ def generation_reference_check(torch):
         params = cpu.init(torch.Generator().manual_seed(1))
         cuda = LM(arch, device="cuda", recent_window=8)
         params_cuda = _to_cuda(params)
-        for s in (45, 64):
-            toks = torch.randint(2, arch.vocab, (2, s),
+        moe = any(g.kind == "moe" for g in cuda.segments)
+        for s in prompts:
+            toks = torch.randint(2, arch.vocab, (batch, s),
                                  generator=torch.Generator().manual_seed(s))
-            want = generate(torch, cpu, params, toks, 12, s + 24)
+            drops = {"card": [], "cpu": []} if moe else {}
+            want = generate(torch, cpu, params, toks, 12, s + 24,
+                            drops=drops.get("cpu"))
             got = generate(torch, cuda, params_cuda, toks.cuda(), 12,
-                           s + 24).cpu()
+                           s + 24, drops=drops.get("card")).cpu()
             if not torch.equal(got, want):
                 raise AssertionError(f"{name} prompt {s}: card tokens "
                                      f"{got.tolist()} != CPU {want.tolist()}")
+            drops = {k: [int(d) for d in torch.stack(v).tolist()]
+                     for k, v in drops.items()}
+            if moe and (drops["card"] != drops["cpu"]
+                        or not any(drops["cpu"][1:])):
+                raise AssertionError(f"{name} prompt {s}: drops, prefill "
+                                     f"then each step, card {drops['card']}"
+                                     f", CPU {drops['cpu']}; some decode "
+                                     "step must drop")
             log(f"[reference] {name} reduced ({n_layers} layers, d_model "
-                f"256) fp32 prompt {s}: card tokens == CPU tokens "
-                f"({got.numel()} tokens)")
+                f"256) fp32 batch {batch} prompt {s}: card tokens == CPU "
+                f"tokens ({got.numel()} tokens)"
+                + (f"; drops, prefill then each step, card == CPU: "
+                   f"{drops['card']}" if moe else ""))
 
 
 def generation_path(torch, counters, name, runs, window, must_launch):
@@ -1090,8 +1165,10 @@ def generation_path(torch, counters, name, runs, window, must_launch):
     greedily through ``LM.prefill`` / ``LM.decode_step`` (and
     ``maybe_flush`` every ``window`` steps) for each (batch, prompt,
     steps) in ``runs``. Counters are zeroed just before and read just
-    after; each kernel in ``must_launch`` must have run. Then one warm
-    prefill and one decode step of the first run are profiled by
+    after; each kernel in ``must_launch`` must have run, B2 once per
+    attention layer and B4 once per Mamba layer per prefill. For a MoE
+    model the drops of the prefill and of each step are logged. Then one
+    warm prefill and one decode step of the first run are profiled by
     kernel."""
     import numpy as np
 
@@ -1111,6 +1188,7 @@ def generation_path(torch, counters, name, runs, window, must_launch):
     rng = np.random.default_rng(0)
     prompts = [torch.as_tensor(rng.integers(2, arch.vocab, (b, s)),
                                device="cuda") for b, s, _ in runs]
+    is_moe = any(g.kind == "moe" for g in model.segments)
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
@@ -1123,9 +1201,10 @@ def generation_path(torch, counters, name, runs, window, must_launch):
             logits, _ = model.prefill(params, toks, s_max=s_max)
             torch.cuda.synchronize()
             pre_ms.append(1e3 * (time.perf_counter() - t0))
-        step_ms = []
+        step_ms, drops = [], [] if is_moe else None
         t0 = time.perf_counter()
-        out = generate(torch, model, params, toks, steps, s_max, step_ms)
+        out = generate(torch, model, params, toks, steps, s_max, step_ms,
+                       drops)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         if out.shape != (b, steps + 1) or not bool(
@@ -1140,6 +1219,10 @@ def generation_path(torch, counters, name, runs, window, must_launch):
             "decode_ms_min": min(step_ms),
             "output_tokens_per_s": b * steps / (sum(step_ms) / 1e3),
             "generate_s": gen_s, "distinct_tokens": int(out.unique().numel())})
+        if is_moe:
+            d = [int(v) for v in torch.stack(drops).tolist()]
+            results[-1].update(prefill_drops=d[0],
+                               decode_drops_per_step=d[1:])
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
     summary = {"runs": results, "launches": launches,
@@ -1149,11 +1232,13 @@ def generation_path(torch, counters, name, runs, window, must_launch):
         if launches[k] <= 0:
             raise AssertionError(f"{name}: kernel {k} never launched")
     n_mamba = sum(g.n * (g.inner if g.kind == "hyb_super" else 1)
-                  for g in model.segments if g.kind != "dense")
-    if launches["ssd_scan"] != 3 * len(runs) * n_mamba:
-        raise AssertionError(f"{name}: {launches['ssd_scan']} B4 launches, "
-                             f"not {n_mamba} per prefill over "
-                             f"{3 * len(runs)} prefills")
+                  for g in model.segments if g.kind in ("mamba", "hyb_super"))
+    n_attn = sum(g.n for g in model.segments if g.kind != "mamba")
+    for k, per in (("ssd_scan", n_mamba), ("flash_attention", n_attn)):
+        if launches[k] != 3 * len(runs) * per:
+            raise AssertionError(f"{name}: {launches[k]} {k} launches, "
+                                 f"not {per} per prefill over "
+                                 f"{3 * len(runs)} prefills")
 
     b, s, steps = runs[0]
     toks = prompts[0]
@@ -1179,7 +1264,60 @@ def generation_path(torch, counters, name, runs, window, must_launch):
     warm = 1e3 * (time.perf_counter() - t0)
     log(f"[{name}] decode step B={b} context {s} " + json.dumps(_summary(
         _device_ms_by_kernel(torch, step, n=3), warm)))
+    if is_moe:
+        moe_drop_probe(torch, name, model, params, toks, s_max)
     return launches
+
+
+def moe_drop_probe(torch, name, model, params, toks, s_max):
+    """Where a MoE prefill drops assignments, and whether the card drops
+    the ones the CPU does, at full width. One more prefill runs with
+    ``moe_ffn`` wrapped (no kernel runs inside it): a line per MoE layer
+    gives its drops, the busiest expert's share of the assignments (1 /
+    n_experts if routing were uniform) and how alike the tokens entering
+    it are (the mean cosine of each token's FFN input to their mean). The
+    input and routed weights of the layer that drops most then go through
+    ``moe_ffn`` on the CPU (plain PyTorch, the path the tests hold against
+    the reference): its drops beside the card's, and the largest output
+    difference over the largest output. Diagnostic: nothing here fails."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import model as model_mod
+    arch = model.arch
+    routed = model_mod.moe_ffn
+    seen = []
+
+    def probe(x, p, arch_, cf=None):
+        out, aux = routed(x, p, arch_, cf)
+        h = x.reshape(-1, x.shape[-1]).float()
+        top = (h @ p["router"].float()).topk(arch.moe.top_k, dim=-1).indices
+        load = torch.bincount(top.reshape(-1), minlength=arch.moe.n_experts)
+        cos = F.cosine_similarity(h, h.mean(0, keepdim=True), dim=-1).mean()
+        seen.append((x, p, out, torch.stack(
+            [aux[1], load.max().float() / top.numel(), cos])))
+        return out, aux
+
+    t0 = time.perf_counter()
+    model_mod.moe_ffn = probe
+    model.prefill(params, toks, s_max=s_max)
+    model_mod.moe_ffn = routed
+    stats = torch.stack([r[3] for r in seen]).tolist()
+    for i, (drops, share, cos) in enumerate(stats):
+        log(f"[{name} drops] prefill layer {i}: drops {int(drops)} of "
+            f"{toks.numel() * arch.moe.top_k}, busiest expert "
+            f"{share:.4f} of assignments (uniform "
+            f"{1 / arch.moe.n_experts:.4f}), mean cosine to the mean token "
+            f"{cos:.4f}")
+    worst = max(range(len(stats)), key=lambda i: stats[i][0])
+    x, p, out, _ = seen[worst]
+    p_cpu = {k: p[k].cpu() for k in ("router", "w_gate", "w_up", "w_down")}
+    out_cpu, aux_cpu = routed(x.cpu(), p_cpu, arch, model.capacity_factor)
+    err = (out.cpu().float() - out_cpu.float()).abs().max() \
+        / out_cpu.float().abs().max()
+    log(f"[{name} drops] layer {worst} on the CPU, from the card's input: "
+        f"drops {int(aux_cpu[1])} (card {int(stats[worst][0])}); max |card "
+        f"- CPU| / max |CPU| of the routed output {float(err):.3g}; "
+        f"{time.perf_counter() - t0:.1f}s wall")
 
 
 def main() -> int:
@@ -1232,14 +1370,18 @@ def main() -> int:
     cases = kernel_phases(torch, F, timer)
     reference_check(torch)
     counters = (paged_decode_attention, flash_attention, rmsnorm)
-    launches, arch, params = main_path(torch, counters)
-    breakdown(torch, arch, params)
-    del params                      # free llama2-7b before the Mamba phases
-    gc.collect()
+    launches, arch, params, w32 = main_path(torch, counters)
+    gc.collect()                    # the cluster and its engines
+    breakdown(torch, arch, params, w32)
+    del params, w32                 # free llama2-7b and its fp32 copy
+    gc.collect()                    # before the Mamba phases
     torch.cuda.empty_cache()
+    log(f"[free] llama2-7b freed: memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
 
     cases += ssd_kernel_phase(torch, timer)
-    generation_reference_check(torch)
+    generation_reference_check(torch, (("mamba2-1.3b", 4), ("zamba2-7b", 5)),
+                               batch=2, prompts=(45, 64))
     counters += (ssd_scan,)
     ssm = generation_path(torch, counters, "mamba2-1.3b",
                           runs=((4, 2048, 64), (2, 1000, 16)), window=256,
@@ -1250,6 +1392,20 @@ def main() -> int:
                     runs=((2, 1024, 48),), window=32,
                     must_launch=("flash_attention", "rmsnorm", "ssd_scan"))
     launches["ssd_scan"] = ssm["ssd_scan"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    generation_reference_check(torch, (("qwen2-moe-a2.7b", 4),
+                                       ("moonshot-v1-16b-a3b", 4)),
+                               batch=8, prompts=(40,))
+    log(f"[moe] reference check: {time.perf_counter() - t0:.1f}s wall")
+    t0 = time.perf_counter()
+    generation_path(torch, counters, "qwen2-moe-a2.7b",
+                    runs=((2, 1024, 32),), window=16,
+                    must_launch=("flash_attention", "rmsnorm"))
+    log(f"[moe] qwen2-moe-a2.7b path: {time.perf_counter() - t0:.1f}s "
+        f"wall; card {smi}")
 
     representative = {"rmsnorm": "1024x4096",
                       "flash_attention": "B=1 Sq=1024 Skv=1024 H=32/32 D=128",

@@ -8,6 +8,8 @@ Algorithms 1-2). The H100 spec the port sizes workers with is in
                    baselines)
   rebalance      — §4.3 Algorithm 2 (prediction-error re-balancing)
   scaling        — §5.2 Eq. 7 autoscaler + change-point detection
+  distributed_scheduler — Appendix A grouped scheduling
+  mip            — exact reference solver (tests)
 """
 from repro_torch.core.perf_model import (DecodeModel, KVModel, PerfModel,
                                          PrefillModel, TraceBuffer,
@@ -27,6 +29,10 @@ from repro_torch.core.worker_config import (A100_80G, TPU_V5E, V100_32G,
                                             WorkerSpec, make_worker_spec,
                                             optimal_worker_config,
                                             spot_variant)
+from repro_torch.core.distributed_scheduler import (GroupedScheduler,
+                                                    SchedLatencyModel,
+                                                    choose_group_count)
+from repro_torch.core.mip import exact_min_workers
 
 __all__ = [
     "DecodeModel", "KVModel", "PerfModel", "PrefillModel",
@@ -37,5 +43,6 @@ __all__ = [
     "PAPER_SLOS", "SLO", "slo_attainment", "slo_metric_ok",
     "windowed_attainment", "A100_80G", "TPU_V5E", "V100_32G", "HardwareSpec",
     "WorkerConfig", "WorkerSpec", "make_worker_spec", "optimal_worker_config",
-    "spot_variant",
+    "spot_variant", "GroupedScheduler", "SchedLatencyModel",
+    "choose_group_count", "exact_min_workers",
 ]

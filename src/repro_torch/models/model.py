@@ -1,9 +1,10 @@
 """The port's LM, from the reference's unified builder
-(``repro.models.model.LM``), for ``Family.DENSE``, ``AUDIO``, ``SSM`` and
-``HYBRID``. A model is a list of segments, each a stack of identical
-layers (a Python loop here, ``lax.scan`` in the reference):
+(``repro.models.model.LM``), for ``Family.DENSE``, ``AUDIO``, ``MOE``,
+``SSM`` and ``HYBRID``. A model is a list of segments, each a stack of
+identical layers (a Python loop here, ``lax.scan`` in the reference):
 
   dense/audio:  [dense x L]
+  moe:          [dense_mlp x n_dense, moe x (L - n_dense)]
   ssm:          [mamba x L]
   hybrid:       [hyb_super x n_super (inner mamba + one SHARED attention
                  + MLP block), mamba x trailing]
@@ -20,8 +21,9 @@ layer) and ``maybe_flush`` (recent -> big on every attention cache; the
 caller runs it every ``recent_window`` steps). Everything runs in the
 parameter dtype (bf16 for the paper's models). On CUDA attention prefill
 goes through kernel B2, every norm through B3 and every Mamba-2 prefill
-through B4; the staged decode is plain torch, as the reference's is jnp.
-MoE and cross-attention (VLM) families are not ported yet."""
+through B4; the staged decode and the MoE routing and expert products
+(``models/moe.py``) are plain torch, as the reference's are jnp. The
+cross-attention (VLM) family is not ported yet."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,6 +41,7 @@ from repro_torch.models.attention import (RECENT_WINDOW, AttnCache,
 from repro_torch.models.common import gated_mlp, rms_norm, sinusoidal_pos
 from repro_torch.models.mamba2 import (MambaCache, make_mamba_cache,
                                        mamba_block_decode, mamba_block_full)
+from repro_torch.models.moe import moe_ffn, shared_expert_ffn
 
 # leaf = (shape, scale); scale -1 -> ones, 0 -> zeros, -2 -> log U[1, 16]
 # in fp32 (A_log), else N(0, scale^2)
@@ -47,7 +50,8 @@ Leaf = Tuple[Tuple[int, ...], float]
 
 @dataclasses.dataclass(frozen=True)
 class SegmentSpec:
-    kind: str                      # dense | mamba | hyb_super
+    kind: str                      # dense | dense_mlp | moe | mamba |
+                                   # hyb_super
     n: int                         # layers (or super-blocks)
     inner: int = 1                 # mamba layers per super-block
 
@@ -65,13 +69,41 @@ def _attn_leaves(arch: ArchConfig) -> Dict[str, Leaf]:
     return leaves
 
 
-def _dense_layer_leaves(arch: ArchConfig) -> Dict[str, Leaf]:
-    d, dff = arch.d_model, arch.d_ff
+def _mlp_leaves(arch: ArchConfig, d_ff: int) -> Dict[str, Leaf]:
+    d = arch.d_model
+    return {"wg": ((d, d_ff), 1.0 / math.sqrt(d)),
+            "wu": ((d, d_ff), 1.0 / math.sqrt(d)),
+            "wd": ((d_ff, d), 1.0 / math.sqrt(d_ff))}
+
+
+def _dense_layer_leaves(arch: ArchConfig, d_ff: int = 0) -> Dict[str, Leaf]:
+    """A dense layer; ``d_ff`` (default: the arch's) sets the MLP width."""
+    d = arch.d_model
     out = {"ln1": ((d,), -1.0), "ln2": ((d,), -1.0)}
     out.update(_attn_leaves(arch))
-    out.update({"wg": ((d, dff), 1.0 / math.sqrt(d)),
-                "wu": ((d, dff), 1.0 / math.sqrt(d)),
-                "wd": ((dff, d), 1.0 / math.sqrt(dff))})
+    out.update(_mlp_leaves(arch, d_ff or arch.d_ff))
+    return out
+
+
+def _moe_layer_leaves(arch: ArchConfig) -> Dict[str, Leaf]:
+    """Attention plus routed experts (stacked (E, ...); one rank, so no
+    padded experts) and, where the arch has them, the shared experts'
+    MLP."""
+    d = arch.d_model
+    m = arch.moe
+    e = m.n_experts
+    out = {"ln1": ((d,), -1.0), "ln2": ((d,), -1.0)}
+    out.update(_attn_leaves(arch))
+    s = 1.0 / math.sqrt(d)
+    out.update({"router": ((d, e), s),
+                "w_gate": ((e, d, m.d_expert), s),
+                "w_up": ((e, d, m.d_expert), s),
+                "w_down": ((e, m.d_expert, d),
+                           1.0 / math.sqrt(m.d_expert))})
+    if m.n_shared_experts:
+        d_sh = m.d_shared or m.d_expert * m.n_shared_experts
+        out.update({"sh_gate": ((d, d_sh), s), "sh_up": ((d, d_sh), s),
+                    "sh_down": ((d_sh, d), 1.0 / math.sqrt(d_sh))})
     return out
 
 
@@ -100,17 +132,27 @@ def _layer(seg: Dict[str, torch.Tensor], *idx: int) -> Dict[str, torch.Tensor]:
     return {k: t[idx] for k, t in seg.items()}
 
 
+# segment kinds whose layers hold one self-attention site each
+_ATTN_KINDS = ("dense", "dense_mlp", "moe")
+
+
 class LM:
+    """``capacity_factor`` (default: the arch's ``moe.capacity_factor``)
+    sizes the MoE layers' static expert capacity, as the reference's
+    ``ExecConfig.capacity_factor`` does."""
+
     def __init__(self, arch: ArchConfig, device: DeviceLike = None,
-                 recent_window: int = RECENT_WINDOW):
-        if arch.family not in (Family.DENSE, Family.AUDIO, Family.SSM,
-                               Family.HYBRID):
+                 recent_window: int = RECENT_WINDOW,
+                 capacity_factor: Optional[float] = None):
+        if arch.family not in (Family.DENSE, Family.AUDIO, Family.MOE,
+                               Family.SSM, Family.HYBRID):
             raise NotImplementedError(
-                "repro_torch ports the dense, audio, SSM and hybrid LMs, "
-                f"not {arch.family.value}")
+                "repro_torch ports the dense, audio, MoE, SSM and hybrid "
+                f"LMs, not {arch.family.value}")
         self.arch = arch
         self.device = resolve_device(device)
         self.recent_window = recent_window
+        self.capacity_factor = capacity_factor
         self.dtype = torch.bfloat16 if arch.param_dtype == "bfloat16" \
             else torch.float32
         self.segments = self._build_segments()
@@ -119,6 +161,10 @@ class LM:
         a = self.arch
         if a.family in (Family.DENSE, Family.AUDIO):
             return [SegmentSpec("dense", a.n_layers)]
+        if a.family == Family.MOE:
+            nd = a.moe.n_dense_layers
+            segs = [SegmentSpec("dense_mlp", nd)] if nd else []
+            return segs + [SegmentSpec("moe", a.n_layers - nd)]
         if a.family == Family.SSM:
             return [SegmentSpec("mamba", a.n_layers)]
         per = a.attn_every
@@ -140,6 +186,11 @@ class LM:
         for i, seg in enumerate(self.segments):
             if seg.kind == "dense":
                 t[f"seg{i}"] = _stack(_dense_layer_leaves(a), seg.n)
+            elif seg.kind == "dense_mlp":    # leading dense layers of a MoE
+                dff = a.moe.d_shared or a.moe.d_expert * 8
+                t[f"seg{i}"] = _stack(_dense_layer_leaves(a, dff), seg.n)
+            elif seg.kind == "moe":
+                t[f"seg{i}"] = _stack(_moe_layer_leaves(a), seg.n)
             elif seg.kind == "mamba":
                 t[f"seg{i}"] = _stack(_mamba_layer_leaves(a), seg.n)
             else:
@@ -168,7 +219,7 @@ class LM:
                 return torch.log(u * 15.0 + 1.0).to(self.device)
             t = torch.randn(shape, generator=generator, dtype=torch.float32,
                             device=gdev)
-            return (t * scale).to(device=self.device, dtype=self.dtype)
+            return t.mul_(scale).to(device=self.device, dtype=self.dtype)
 
         def walk(node):
             return {k: walk(node[k]) if isinstance(node[k], dict)
@@ -198,6 +249,30 @@ class LM:
         h = rms_norm(x, p["ln2"], a.norm_eps)
         return x + gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act), cache
 
+    def _moe_layer_full(self, x, p, positions):
+        a = self.arch
+        h = rms_norm(x, p["ln1"], a.norm_eps)
+        res, kv = self_attention_full(h, p, a, positions=positions,
+                                      return_kv=True)
+        x = x + res
+        h = rms_norm(x, p["ln2"], a.norm_eps)
+        out, aux = moe_ffn(h, p, a, self.capacity_factor)
+        if a.moe.n_shared_experts:
+            out = out + shared_expert_ffn(h, p, a)
+        return x + out, kv, aux
+
+    def _moe_layer_decode(self, x, p, cache: AttnCache):
+        a = self.arch
+        h = rms_norm(x, p["ln1"], a.norm_eps)
+        res, cache = self_attention_decode(h, cache, p, a)
+        x = x + res
+        h = rms_norm(x, p["ln2"], a.norm_eps)
+        out, aux = moe_ffn(h[:, None, :], p, a, self.capacity_factor)
+        out = out[:, 0]
+        if a.moe.n_shared_experts:
+            out = out + shared_expert_ffn(h, p, a)
+        return x + out, cache, aux
+
     def _mamba_layer_full(self, x, p):
         h = rms_norm(x, p["ln"], self.arch.norm_eps)
         res, cache = mamba_block_full(h, p, self.arch, return_cache=True)
@@ -223,16 +298,23 @@ class LM:
 
     def _forward_full(self, params, x):
         """x: (B, S, D) -> (final-normed hidden (B, S, D), per-segment raw
-        caches: (k, v) stacks, stacked MambaCaches, or both)."""
+        caches: (k, v) stacks, stacked MambaCaches, or both; aux (2,) fp32:
+        the MoE layers' [load-balance loss, drops] summed)."""
         positions = torch.arange(x.shape[1], device=x.device)
         caches = []
+        aux_sum = torch.zeros((2,), dtype=torch.float32, device=x.device)
         for i, seg in enumerate(self.segments):
             p = params[f"seg{i}"]
-            if seg.kind == "dense":
+            if seg.kind in _ATTN_KINDS:
                 ks, vs = [], []
                 for li in range(seg.n):
-                    x, (k, v) = self._dense_layer_full(x, _layer(p, li),
-                                                       positions)
+                    if seg.kind == "moe":
+                        x, (k, v), aux = self._moe_layer_full(
+                            x, _layer(p, li), positions)
+                        aux_sum = aux_sum + aux
+                    else:
+                        x, (k, v) = self._dense_layer_full(
+                            x, _layer(p, li), positions)
                     ks.append(k)
                     vs.append(v)
                 caches.append((torch.stack(ks), torch.stack(vs)))
@@ -257,15 +339,18 @@ class LM:
                     vs.append(v)
                 caches.append((MambaCache.stack(supers),
                                (torch.stack(ks), torch.stack(vs))))
-        return rms_norm(x, params["final_ln"], self.arch.norm_eps), caches
+        return (rms_norm(x, params["final_ln"], self.arch.norm_eps), caches,
+                aux_sum)
 
     # -- prefill ------------------------------------------------------------
     def prefill(self, params, tokens: Optional[torch.Tensor] = None,
                 embeds: Optional[torch.Tensor] = None,
                 s_max: Optional[int] = None,
-                logit_pos: Optional[int] = None):
+                logit_pos: Optional[int] = None, return_aux: bool = False):
         """tokens: (B, S) int64, or embeds: (B, S, D) (``Family.AUDIO``) ->
-        (logits (B, V) fp32 at ``logit_pos`` (default: last), cache).
+        (logits (B, V) fp32 at ``logit_pos`` (default: last), cache), and
+        with ``return_aux`` a third item, the MoE layers' summed (2,) fp32
+        [load-balance loss, dropped assignments] (zeros without MoE).
 
         The cache has one entry per segment: an attention dict {k_big,
         v_big (L, B, s_max, Hkv, hd) padded from S, k_rec, v_rec (L, B, W,
@@ -278,10 +363,11 @@ class LM:
         x = self._embed_inputs(params, tokens, embeds)
         b, s, _ = x.shape
         s_max = s_max or s
-        h, raw = self._forward_full(params, x)
+        h, raw, aux = self._forward_full(params, x)
         pos = s - 1 if logit_pos is None else logit_pos
         logits = h[:, pos].float() @ self.head_weight(params).float()
-        return logits, self._package_cache(raw, b, s, s_max)
+        cache = self._package_cache(raw, b, s, s_max)
+        return (logits, cache, aux) if return_aux else (logits, cache)
 
     def _attn_cache_from_kv(self, kv, b, s, s_max):
         a = self.arch
@@ -296,7 +382,7 @@ class LM:
     def _package_cache(self, raw, b, s, s_max):
         out = []
         for seg, c in zip(self.segments, raw):
-            if seg.kind == "dense":
+            if seg.kind in _ATTN_KINDS:
                 out.append(self._attn_cache_from_kv(c, b, s, s_max))
             elif seg.kind == "mamba":
                 out.append(c)
@@ -328,7 +414,7 @@ class LM:
 
         out = []
         for seg in self.segments:
-            if seg.kind == "dense":
+            if seg.kind in _ATTN_KINDS:
                 out.append(attn_cache(seg.n))
             elif seg.kind == "mamba":
                 out.append(mamba_cache(seg.n))
@@ -353,8 +439,10 @@ class LM:
                 "v_rec": torch.stack([a.v_recent for a in sites]),
                 "rec_len": c["rec_len"] + 1}
 
-    def decode_step(self, params, cache, tokens: torch.Tensor):
-        """tokens: (B,) int64 -> (logits (B, V) fp32, new cache). The input
+    def decode_step(self, params, cache, tokens: torch.Tensor,
+                    return_aux: bool = False):
+        """tokens: (B,) int64 -> (logits (B, V) fp32, new cache), and the
+        summed MoE aux with ``return_aux`` (as ``prefill``). The input
         cache is left as it was."""
         a = self.arch
         x = params["embed"][tokens].to(self.dtype)
@@ -366,13 +454,19 @@ class LM:
                                device=x.device)
             x = x + sinusoidal_pos(pos, a.d_model)[0].to(x.dtype)
         new_cache = []
+        aux_sum = torch.zeros((2,), dtype=torch.float32, device=x.device)
         for i, seg in enumerate(self.segments):
             p, c = params[f"seg{i}"], cache[i]
-            if seg.kind == "dense":
+            if seg.kind in _ATTN_KINDS:
                 sites = []
                 for li in range(seg.n):
-                    x, ac = self._dense_layer_decode(
-                        x, _layer(p, li), self._unpack_attn(c, li))
+                    if seg.kind == "moe":
+                        x, ac, aux = self._moe_layer_decode(
+                            x, _layer(p, li), self._unpack_attn(c, li))
+                        aux_sum = aux_sum + aux
+                    else:
+                        x, ac = self._dense_layer_decode(
+                            x, _layer(p, li), self._unpack_attn(c, li))
                     sites.append(ac)
                 new_cache.append(self._appended(c, sites))
             elif seg.kind == "mamba":
@@ -398,7 +492,9 @@ class LM:
                 new_cache.append({"mamba": MambaCache.stack(supers),
                                   "attn": self._appended(c["attn"], sites)})
         x = rms_norm(x, params["final_ln"], a.norm_eps)
-        return x.float() @ self.head_weight(params).float(), new_cache
+        logits = x.float() @ self.head_weight(params).float()
+        return (logits, new_cache, aux_sum) if return_aux \
+            else (logits, new_cache)
 
     def maybe_flush(self, cache):
         """Flush recent -> big on every attention cache (run it every
@@ -411,7 +507,7 @@ class LM:
 
         out = []
         for seg, c in zip(self.segments, cache):
-            if seg.kind == "dense":
+            if seg.kind in _ATTN_KINDS:
                 out.append(flush_attn(c))
             elif seg.kind == "mamba":
                 out.append(c)

@@ -2,7 +2,8 @@
 ported from the reference ``repro.serving.cluster``.
 
 Runs the paper's full loop on live ``PagedEngine`` workers (on one CUDA
-card, sharing one weight set, or on the CPU when asked):
+card, sharing one weight set and one fp32 copy of its decode weights, or
+on the CPU when asked):
 
   submit -> predict l_out -> best-fit place (Alg. 1) -> engines run
   iteration-level batching -> traces refit the perf models -> re-balance
@@ -92,6 +93,7 @@ class ServingCluster:
         self.autoscaler = Autoscaler(AutoscalerConfig(
             min_workers=cfg.min_workers, max_workers=cfg.max_workers))
         self._wid = 0
+        self.w32: Optional[dict] = None     # shared by every worker
         self.workers: Dict[int, ClusterWorker] = {}
         self.queued: List[Request] = []
         self.finished: List[Request] = []
@@ -109,7 +111,9 @@ class ServingCluster:
     def _spawn_worker(self) -> ClusterWorker:
         self._wid += 1
         eng = PagedEngine(self.arch, self.params, self.engine_cfg,
-                          time_fn=self.time_fn, device=self.device)
+                          time_fn=self.time_fn, device=self.device,
+                          w32=self.w32)
+        self.w32 = eng.w32          # the first worker's fp32 decode weights
         st = WorkerState(self._wid, self.pcfg, self.perf, self.slo)
         w = ClusterWorker(self._wid, eng, st)
         self.workers[self._wid] = w

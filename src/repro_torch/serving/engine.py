@@ -11,7 +11,9 @@ advance one decode step via paged attention.
 Precision follows the reference: prefill runs in the parameter dtype (bf16
 for the paper's models), decode and the chunked prefill in fp32 — the
 reference's jnp promotion of bf16 weights against fp32 activations is an
-explicit ``.float()`` here. The KV pool is fp32.
+fp32 copy of the weights those two read here (``decode_weights``), made
+when an engine is built; a ``ServingCluster`` makes it once and hands it to
+every worker. The KV pool is fp32.
 
 On a CUDA device every prefill and decode iteration goes through the port's
 kernels (B1 paged decode, B2 flash attention, B3 RMSNorm); on the CPU
@@ -54,9 +56,14 @@ class EngineConfig:
                                     # stalls (shrinks constraint (d) pressure)
 
 
-def _f32_layer(seg, i: int) -> dict:
-    """Layer i of the stacked params, promoted to fp32 (decode precision)."""
-    return {k: t[i].float() for k, t in seg.items()}
+def decode_weights(params, head: torch.Tensor) -> dict:
+    """The weights that decode and the chunked prefill read (every ``seg0``
+    leaf, stacked (L, ...), and ``head`` (D, V)) in fp32: for bf16 params a
+    copy, for fp32 params the params' own tensors. The copy is of the
+    weights as they are now; whoever changes ``params`` later makes it
+    anew."""
+    return {"seg0": {k: t.float() for k, t in params["seg0"].items()},
+            "head": head.float()}
 
 
 class PagedEngine:
@@ -64,7 +71,11 @@ class PagedEngine:
 
     def __init__(self, arch: ArchConfig, params, cfg: EngineConfig,
                  time_fn: Callable[[], float] = time.perf_counter,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 w32: Optional[dict] = None):
+        """``w32``: ``decode_weights`` of these ``params``, to share one
+        fp32 copy between engines (``ServingCluster`` does); None makes this
+        engine its own."""
         if arch.family not in (Family.DENSE, Family.AUDIO):
             raise ValueError("engine path supports dense GQA archs (the "
                              "paper's models)")
@@ -78,6 +89,8 @@ class PagedEngine:
         self.time_fn = time_fn
         self.traces = TraceBuffer()
         self.model = LM(arch, device=self.device)
+        self.w32 = w32 if w32 is not None else decode_weights(
+            params, self.model.head_weight(params))
         L = arch.n_layers
         hd = arch.resolved_head_dim
         self.kv_k = torch.zeros((L, cfg.n_pages, cfg.page_size,
@@ -117,11 +130,11 @@ class PagedEngine:
         is written in place. Returns logits (max_batch, V) in fp32."""
         a = self.arch
         hd = a.resolved_head_dim
-        params = self.params
+        seg = self.w32["seg0"]
         bt = self._tensor(self.block_tables)
         lengths = self._tensor(self.lengths)
         act = self._tensor(active_slots, torch.long)
-        x = params["embed"][self._tensor(tokens)].float()
+        x = self.params["embed"][self._tensor(tokens)].float()
         if a.tie_embeddings:
             x = x * math.sqrt(a.d_model)
         if a.pos_emb == PosEmb.SINUSOIDAL:
@@ -130,8 +143,9 @@ class PagedEngine:
         page_ids = bt[act, pos // self.cfg.page_size].long()
         offs = (pos % self.cfg.page_size).long()
         seq_lens = lengths + 1
+        rope_pos = lengths[:, None].float()     # once, not once a layer
         for i in range(a.n_layers):
-            p = _f32_layer(params["seg0"], i)
+            p = {k: t[i] for k, t in seg.items()}
             h = rms_norm(x, p["ln1"], a.norm_eps)
             q = (h @ p["wq"]).reshape(-1, a.n_heads, hd)
             k = (h @ p["wk"]).reshape(-1, a.n_kv_heads, hd)
@@ -141,8 +155,8 @@ class PagedEngine:
                 k = k + p["bk"].reshape(a.n_kv_heads, hd)
                 v = v + p["bv"].reshape(a.n_kv_heads, hd)
             if a.pos_emb == PosEmb.ROPE:
-                q = rope(q[:, None], lengths[:, None], a.rope_theta)[:, 0]
-                k = rope(k[:, None], lengths[:, None], a.rope_theta)[:, 0]
+                q = rope(q[:, None], rope_pos, a.rope_theta)[:, 0]
+                k = rope(k[:, None], rope_pos, a.rope_theta)[:, 0]
             self.kv_k[i, page_ids, offs] = k[act]
             self.kv_v[i, page_ids, offs] = v[act]
             att = paged_decode_attention(q.contiguous(), self.kv_k[i],
@@ -150,8 +164,8 @@ class PagedEngine:
             x = x + att.reshape(x.shape[0], -1) @ p["wo"]
             h = rms_norm(x, p["ln2"], a.norm_eps)
             x = x + gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act)
-        x = rms_norm(x, params["final_ln"], a.norm_eps)
-        return x @ self.model.head_weight(params).float()
+        x = rms_norm(x, self.params["final_ln"], a.norm_eps)
+        return x @ self.w32["head"]
 
     def _chunk(self, chunk_toks: List[int], k_ctx, v_ctx, ctx_len: int,
                logit_pos: int):
@@ -161,8 +175,8 @@ class PagedEngine:
         Returns (logits at logit_pos, chunk ks, vs: (L, C, Hkv, hd))."""
         a = self.arch
         hd = a.resolved_head_dim
-        params = self.params
-        x = params["embed"][self._tensor(chunk_toks, torch.long)].float()
+        seg = self.w32["seg0"]
+        x = self.params["embed"][self._tensor(chunk_toks, torch.long)].float()
         x = x[None]                                           # (1, C, D)
         if a.tie_embeddings:
             x = x * math.sqrt(a.d_model)
@@ -172,7 +186,7 @@ class PagedEngine:
                             device=self.device)
         ks_out, vs_out = [], []
         for i in range(a.n_layers):
-            p = _f32_layer(params["seg0"], i)
+            p = {k: t[i] for k, t in seg.items()}
             h = rms_norm(x, p["ln1"], a.norm_eps)
             q = (h @ p["wq"]).reshape(1, c, a.n_heads, hd)
             k = (h @ p["wk"]).reshape(1, c, a.n_kv_heads, hd)
@@ -193,8 +207,8 @@ class PagedEngine:
             x = x + att.reshape(1, c, -1) @ p["wo"]
             h = rms_norm(x, p["ln2"], a.norm_eps)
             x = x + gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act)
-        x = rms_norm(x, params["final_ln"], a.norm_eps)
-        logits = x[0, logit_pos] @ self.model.head_weight(params).float()
+        x = rms_norm(x, self.params["final_ln"], a.norm_eps)
+        logits = x[0, logit_pos] @ self.w32["head"]
         return logits, torch.stack(ks_out), torch.stack(vs_out)
 
     # ---- page management ----------------------------------------------------

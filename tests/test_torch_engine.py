@@ -208,3 +208,65 @@ def test_engine_rejects_params_on_another_device():
             for k, v in params.items()}
     with pytest.raises(ValueError):
         PagedEngine(arch, meta, EngineConfig(**ENGINE_KW), device="cpu")
+
+
+def test_engines_share_one_fp32_copy_made_once(monkeypatch):
+    """bf16 weights are promoted to fp32 once per weight set, not per
+    step: a cluster's workers (those it spawns later too) read one fp32
+    copy, made when the first worker is built; decode and chunked-prefill
+    iterations promote nothing; an engine given that copy uses it."""
+    from repro_torch.core.slo import SLO
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.cluster import ClusterConfig, ServingCluster
+    arch = reduced(get_arch("granite-3-8b"), n_layers=2, d_model=64,
+                   vocab=128)
+    params = LM(arch, device="cpu").init(torch.Generator().manual_seed(0))
+    assert params["seg0"]["wq"].dtype == torch.bfloat16
+    calls = []
+    promote = engine_mod.decode_weights
+    monkeypatch.setattr(engine_mod, "decode_weights",
+                        lambda *a: calls.append(1) or promote(*a))
+    cfg = EngineConfig(**{**ENGINE_KW, "prefill_chunk": 8})
+    cluster = ServingCluster(arch, params, SLO(ttft=30.0, atgt=5.0),
+                             engine_cfg=cfg, cfg=ClusterConfig(),
+                             n_workers=2, device="cpu")
+    cluster._spawn_worker()
+    engines = [w.engine for w in cluster.workers.values()]
+    engines.append(PagedEngine(arch, params, cfg, device="cpu",
+                               w32=cluster.w32))
+    assert len(calls) == 1 and len(engines) == 4
+    e1 = engines[0]
+    for k, t in e1.w32["seg0"].items():
+        assert t.dtype == torch.float32 and t.shape == params["seg0"][k].shape
+        assert torch.equal(t, params["seg0"][k].float()), k
+        for e in engines[1:]:
+            assert t.data_ptr() == e.w32["seg0"][k].data_ptr(), k
+    for e in engines[1:]:
+        assert e1.w32["head"].data_ptr() == e.w32["head"].data_ptr()
+    rng = np.random.default_rng(5)
+    prompts = [[int(x) for x in rng.integers(2, arch.vocab, n)]
+               for n in (12, 21)]
+    for eng in engines:
+        _run_engine(eng, Request, prompts, 6, ReqState.FINISHED)
+    assert len(calls) == 1
+
+
+def test_engines_on_trees_sharing_embed_read_their_own_layers():
+    """Two weight trees that share the embedding but differ in one layer:
+    engines built alone on each decode with their own layers."""
+    arch = reduced(get_arch("granite-3-8b"), n_layers=2, d_model=64,
+                   vocab=128)
+    params = LM(arch, device="cpu").init(torch.Generator().manual_seed(0))
+    other = {**params, "seg0": dict(params["seg0"])}
+    other["seg0"]["wd"] = params["seg0"]["wd"].clone()
+    other["seg0"]["wd"][1] *= -1
+    assert other["embed"] is params["embed"]
+    cfg = EngineConfig(**ENGINE_KW)
+    e1 = PagedEngine(arch, params, cfg, device="cpu")
+    e2 = PagedEngine(arch, other, cfg, device="cpu")
+    assert torch.equal(e2.w32["seg0"]["wd"], other["seg0"]["wd"].float())
+    assert not torch.equal(e1.w32["seg0"]["wd"], e2.w32["seg0"]["wd"])
+    tokens = np.full((cfg.max_batch,), 7, np.int64)
+    l1 = e1._decode(tokens, [0])
+    l2 = e2._decode(tokens, [0])
+    assert not torch.equal(l1, l2)

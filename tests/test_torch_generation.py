@@ -30,7 +30,8 @@ from repro_torch.models.attention import make_attn_cache  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from test_torch_models import _close_model  # noqa: E402
 
-PORTED = (Family.DENSE, Family.AUDIO, Family.SSM, Family.HYBRID)
+PORTED = (Family.DENSE, Family.AUDIO, Family.MOE, Family.SSM,
+          Family.HYBRID)
 SMOKE_ARCHS = [n for n in ASSIGNED_ARCHS if get_arch(n).family in PORTED]
 GEN_ARCHS = [("mamba2-1.3b", 2), ("zamba2-7b", 3), ("granite-3-8b", 2)]
 

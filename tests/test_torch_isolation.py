@@ -27,7 +27,8 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 COPIED = sorted(
     [f"configs/{p.name}" for p in (REF / "configs").glob("*.py")]
     + [f"core/{m}.py" for m in ("request", "slo", "perf_model", "placement",
-                                "rebalance", "scaling", "worker_config")]
+                                "rebalance", "scaling", "worker_config",
+                                "distributed_scheduler", "mip")]
     + ["serving/length_predictor.py"])
 _IMPORT_RE = re.compile(r"^(\s*)(from|import) repro(?=[.\s])", re.M)
 
