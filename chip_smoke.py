@@ -11,14 +11,18 @@
    a spill in any of them raises.
 3. Kernel phases: each kernel (B1 paged decode, B2 flash attention, B3
    RMSNorm) runs through its wrapper on the card at the shapes of the
-   paths below (llama2-7b's, then mamba2-1.3b's and zamba2-7b's, and
-   last qwen2-moe-a2.7b's: B3 at 2048 x 2048 and 2 x 2048, B2 at B=2,
-   1024/1024, 16/16 heads, D = 128), is held
+   paths below (llama2-7b's, then mamba2-1.3b's and zamba2-7b's, then
+   qwen2-moe-a2.7b's: B3 at 2048 x 2048 and 2 x 2048, B2 at B=2,
+   1024/1024, 16/16 heads, D = 128; and last llama-3.2-vision-90b's: B3
+   at 2048 x 8192 and 2 x 8192, B2 at B=2, 64/8 heads, D = 128, causal
+   1024/1024 and non-causal 1024/1601 in bf16, and non-causal B=1,
+   256/1601 in fp32, the route of an fp32 frontend), is held
    against its plain PyTorch version on the same inputs (allclose, rtol =
    atol = 2e-5 in fp32 and 2e-2 in bf16), and is timed with CUDA
    events beside its plain version, a PyTorch library call computing the
-   same function where one exists (for B2, SDPA: causal, or with a
-   boolean mask built outside the timed call for a q_offset and kv_len),
+   same function where one exists (for B2, SDPA: causal, unmasked for a
+   non-causal case, or with a boolean mask built outside the timed call
+   for a q_offset and kv_len),
    and its bound; the kernel's and the library call's device time per call
    from torch.profiler, or from CUDA events around calls queued behind a
    spin kernel where the profiler misses the kernel (``device_ms``), beside
@@ -83,9 +87,11 @@
    zamba2-7b, 2 prompts of 1024 and 48 steps with a recent window of 32.
    For each: prefill ms cold and warm, decode ms per step, tokens/s, peak
    memory and launches (counters zeroed just before, read just after; B4
-   must run once per Mamba layer per prefill, B3 and, for the hybrid, B2
-   must run), then device time by kernel and the count of device
-   operations of one warm prefill and one decode step.
+   must run once per Mamba layer per prefill, for the hybrid B2 once per
+   attention block per prefill, and B3 once per norm per prefill and per
+   decode step: since PR 17 on every generation path), then device time
+   by kernel and the count of device operations of one warm prefill and
+   one decode step.
 10. MoE generation reference check: reduced fp32 qwen2-moe-a2.7b and
    moonshot-v1-16b-a3b at batch 8, where the decode steps' expert
    capacity (its floor of 4) drops assignments, generate (prefill, 12
@@ -97,13 +103,32 @@
    of 1024 tokens and 32 greedy steps; prefill ms cold and warm, decode ms
    per step, tokens/s, peak memory, the drops of the prefill and of each
    decode step, launches (counters zeroed just before, read just after;
-   B2 once per layer per prefill, B3 must run), and device time by kernel
-   with the idle share of one warm prefill and one decode step. Then a
-   diagnostic prefill logs each MoE layer's drops, its busiest expert's
-   share and how alike its input tokens are, and re-runs the layer that
-   drops most on the CPU from the card's input (drops and output beside
-   the card's). Both MoE phases print their wall time.
-12. Prints ``{"kernels": [...]}``, then, last,
+   B2 once per layer per prefill, B3 once per norm), and device time by
+   kernel with the idle share of one warm prefill and one decode step.
+   Then a diagnostic prefill logs each MoE layer's drops, its busiest
+   expert's share and how alike its input tokens are, and re-runs the
+   layer that drops most on the CPU from the card's input (drops and
+   output beside the card's). Both MoE phases print their wall time.
+12. VLM generation reference check: reduced fp32 llama-3.2-vision-90b (4
+   layers, 2 of them cross-attention, gates 0.5, 37 frontend tokens)
+   generates (prefill, 12 greedy decode steps, flushes every 8) with the
+   same tokens on the card and on the CPU, for each of two frontends,
+   which must give different tokens.
+13. VLM path: llama-3.2-vision-90b at full width with its depth cut to 10
+   layers (two super-blocks of 4 self-attention layers and one
+   cross-attention layer; 10.66B random bf16 parameters, seed 0, both
+   gates of each cross layer set to 0.5), 1601 bf16 frontend embeddings
+   from seed 0, through ``LM.prefill`` / ``decode_step`` /
+   ``maybe_flush``: 2 prompts of 1024 and 32 greedy steps with a recent
+   window of 16 (one flush); prefill ms cold and warm, decode ms per
+   step, tokens/s, peak memory, launches (counters zeroed just before,
+   read just after: B2 10 times a prefill, 8 causal and 2 not, B3 21
+   times a prefill and a step), device time by kernel with the idle share
+   of one warm prefill and one decode step.
+14. The port's examples (``repro_torch.examples.quickstart`` and
+   ``serve_e2e``: autoscaling, an injected failure, a snapshot) run their
+   ``main`` on the card; each finishes every request it submitted.
+15. Prints ``{"kernels": [...]}``, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -163,6 +188,9 @@ B1_CASES = ((1, 32, 32, "fp32"), (8, 32, 32, "fp32"), (8, 32, 8, "fp32"),
 MAIN_PATH_LENGTHS = (960, 544, 160, 1, 1, 1, 1, 1)
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)     # SSD final state, as the
                                            # reference's test_ssd_sweep
+# both tanh gates of every VLM cross layer: zero at init, where a cross
+# layer adds nothing and the frontend would not matter
+VLM_GATE = 0.5
 
 
 def log(*a) -> None:
@@ -568,7 +596,11 @@ def kernel_phases(torch, F, timer):
         return float(torch.clamp(rows, max=kv_hi).sum())
 
     def flash_cases(shapes):
-        for b, sq, skv, hq, hkv, hd, kind, q_offset, kv_len in shapes:
+        """Each shape: (B, Sq, Skv, Hq, Hkv, D, type, q_offset, kv_len)
+        and, optionally, causal (default True)."""
+        for b, sq, skv, hq, hkv, hd, kind, q_offset, kv_len, *rest in \
+                shapes:
+            causal = rest[0] if rest else True
             dt = torch.bfloat16 if kind == "bf16" else torch.float32
             q = randn((b, sq, hq, hd), dt)
             k = randn((b, skv, hkv, hd), dt)
@@ -577,36 +609,41 @@ def kernel_phases(torch, F, timer):
                 [kv_len] * b, dtype=torch.int32, device=dev)
 
             def kern():
-                return flash_attention(q, k, v, causal=True,
+                return flash_attention(q, k, v, causal=causal,
                                        q_offset=q_offset, kv_len=kl)
 
             def plain():
-                return flash_attention_ref(q, k, v, causal=True,
+                return flash_attention_ref(q, k, v, causal=causal,
                                            q_offset=q_offset, kv_len=kl)
             err = check_close(torch, kern(), plain(), kind,
                               f"flash B={b} {sq}x{skv} {hq}/{hkv} D={hd} "
-                              f"{kind}")
-            # SDPA as the yardstick: causal, or with a boolean mask built
-            # here, outside the timed call, for a q_offset or kv_len
+                              f"{kind}{'' if causal else ' non-causal'}")
+            # SDPA as the yardstick: causal, unmasked (cross), or with a
+            # boolean mask built here, outside the timed call, for a
+            # q_offset or kv_len
             kv_hi = skv if kv_len is None else kv_len
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             sdpa_kw = {"enable_gqa": True} if hq != hkv else {}
-            if q_offset == 0 and kv_len is None and sq == skv:
+            if causal and q_offset == 0 and kv_len is None and sq == skv:
                 sdpa_kw["is_causal"] = True
-            else:
+            elif causal or kv_len is not None:
                 qpos = torch.arange(sq, device=dev)[:, None] + q_offset
                 kpos = torch.arange(skv, device=dev)[None, :]
-                sdpa_kw["attn_mask"] = (kpos <= qpos) & (kpos < kv_hi)
+                mask = kpos < kv_hi
+                sdpa_kw["attn_mask"] = mask & (kpos <= qpos) if causal \
+                    else mask
 
             def lib():
                 return F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
             l_ms, l_dev = timer(lib), device_ms(torch, lib)
-            pairs = attn_pairs(sq, skv, q_offset, kv_hi)
+            pairs = attn_pairs(sq, skv, q_offset, kv_hi) if causal \
+                else float(sq * kv_hi)
             esz = q.element_size()
             nbytes = b * (2 * sq * hq * hd + 2 * kv_hi * hkv * hd) * esz
             flops = 4.0 * b * pairs * hq * hd
             case = f"B={b} Sq={sq} Skv={skv} H={hq}/{hkv} D={hd}" + (
-                f" q_offset={q_offset} kv_len={kv_len}" if q_offset else "")
+                f" q_offset={q_offset} kv_len={kv_len}" if q_offset
+                else "") + ("" if causal else " non-causal")
             record(cases, "flash_attention", case, kind, err, timer(kern),
                    timer(plain), l_ms, nbytes, {kind: flops},
                    dev=(device_ms(torch, kern,
@@ -682,6 +719,16 @@ def kernel_phases(torch, F, timer):
     # batch-2 decode rows), after all of the above so its draws stay
     rmsnorm_cases(((2048, 2048, "bf16", False), (2, 2048, "bf16", False)))
     flash_cases(((2, 1024, 1024, 16, 16, 128, "bf16", 0, None),))
+
+    # llama-3.2-vision-90b (d 8192, 64 heads over 8 of 128: 2 x 1024
+    # prefill rows, batch-2 decode rows; 1601 frontend keys, the last
+    # 64-key tile holding one), after all of the above so its draws stay:
+    # the cross-attention prefill (non-causal) in bf16, and in fp32 as an
+    # fp32 frontend's mixed-dtype route runs it; the self-attention prefill
+    rmsnorm_cases(((2048, 8192, "bf16", False), (2, 8192, "bf16", False)))
+    flash_cases(((2, 1024, 1601, 64, 8, 128, "bf16", 0, None, False),
+                 (2, 1024, 1024, 64, 8, 128, "bf16", 0, None),
+                 (1, 256, 1601, 64, 8, 128, "fp32", 0, None, False)))
     return cases
 
 
@@ -1077,21 +1124,21 @@ def _recent_len(cache) -> int:
     a model without attention)."""
     for c in cache:
         if isinstance(c, dict):
-            return c.get("attn", c)["rec_len"]
+            return c.get("attn", c.get("dense", c))["rec_len"]
     return 0
 
 
 def generate(torch, model, params, toks, steps, s_max, step_ms=None,
-             drops=None):
-    """Greedy: ``LM.prefill`` then ``steps`` x ``LM.decode_step``, running
-    ``LM.maybe_flush`` whenever the recent buffers are full. Returns the
-    tokens (B, 1 + steps); appends each step's host-clock ms (ending in a
-    sync) to ``step_ms`` when given, and the MoE layers' dropped
-    assignments of the prefill and of each step (device scalars) to
-    ``drops`` when given."""
+             drops=None, frontend=None):
+    """Greedy: ``LM.prefill`` (with a VLM's ``frontend``) then ``steps`` x
+    ``LM.decode_step``, running ``LM.maybe_flush`` whenever the recent
+    buffers are full. Returns the tokens (B, 1 + steps); appends each
+    step's host-clock ms (ending in a sync) to ``step_ms`` when given, and
+    the MoE layers' dropped assignments of the prefill and of each step
+    (device scalars) to ``drops`` when given."""
     aux = drops is not None
     logits, cache, *rest = model.prefill(params, toks, s_max=s_max,
-                                         return_aux=aux)
+                                         return_aux=aux, frontend=frontend)
     out = [logits.argmax(-1)]
     if aux:
         drops.append(rest[0][1])
@@ -1160,24 +1207,98 @@ def generation_reference_check(torch, archs, batch, prompts):
                    f"{drops['card']}" if moe else ""))
 
 
-def generation_path(torch, counters, name, runs, window, must_launch):
-    """Full-width ``name`` with random bf16 weights from seed 0 generates
-    greedily through ``LM.prefill`` / ``LM.decode_step`` (and
-    ``maybe_flush`` every ``window`` steps) for each (batch, prompt,
-    steps) in ``runs``. Counters are zeroed just before and read just
-    after; each kernel in ``must_launch`` must have run, B2 once per
-    attention layer and B4 once per Mamba layer per prefill. For a MoE
-    model the drops of the prefill and of each step are logged. Then one
-    warm prefill and one decode step of the first run are profiled by
-    kernel."""
+def vlm_reference_check(torch):
+    """Reduced fp32 llama-3.2-vision-90b (4 layers, 2 of them
+    cross-attention layers with their gates at ``VLM_GATE``; d_model 256,
+    so heads of 64) generates on the card (kernels B2, B3) and on the CPU
+    (plain versions) from the same 37 fp32 patch embeddings (the plain
+    flash version's dense form, as at 1601): 2 prompts of 45, then 12
+    greedy decode steps with a recent window of 8, so maybe_flush runs.
+    The tokens must be identical; another frontend must change them."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.model import LM
+    n_layers, frontend_tokens = 4, 37
+    arch = dataclasses.replace(
+        reduced(get_arch("llama-3.2-vision-90b"), n_layers=n_layers,
+                d_model=256, vocab=512),
+        param_dtype="float32", n_frontend_tokens=frontend_tokens)
+    cpu = LM(arch, device="cpu", recent_window=8)
+    params = cpu.init(torch.Generator().manual_seed(1))
+    for g in ("gate_attn", "gate_mlp"):
+        params["seg0"]["cross"][g].fill_(VLM_GATE)
+    cuda = LM(arch, device="cuda", recent_window=8)
+    params_cuda = _to_cuda(params)
+    g = torch.Generator().manual_seed(45)
+    toks = torch.randint(2, arch.vocab, (2, 45), generator=g)
+    fronts = [torch.randn((2, frontend_tokens, 256), generator=g)
+              for _ in range(2)]
+    out = []
+    for fr in fronts:
+        want = generate(torch, cpu, params, toks, 12, 45 + 24, frontend=fr)
+        got = generate(torch, cuda, params_cuda, toks.cuda(), 12, 45 + 24,
+                       frontend=fr.cuda()).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"VLM reduced: card tokens {got.tolist()}"
+                                 f" != CPU {want.tolist()}")
+        out.append(got)
+    if torch.equal(out[0], out[1]):
+        raise AssertionError("VLM reduced: another frontend gave the same "
+                             "tokens")
+    log(f"[reference] llama-3.2-vision-90b reduced ({n_layers} layers, "
+        f"{n_layers // 2} cross, d_model 256, {frontend_tokens} frontend "
+        f"tokens, gates {VLM_GATE}) fp32 batch 2 prompt 45: card tokens == "
+        f"CPU tokens ({out[0].numel()} tokens) for each of 2 frontends, which "
+        f"differ in {int((out[0] != out[1]).sum())} tokens")
+
+
+def examples_on_card(torch):
+    """The port's two example drivers (``repro_torch.examples``) run their
+    ``main`` on the card; each must finish every request it submitted."""
+    from repro_torch.examples import quickstart, serve_e2e
+    for ex in (quickstart, serve_e2e):
+        t0 = time.perf_counter()
+        out = ex.main(device="cuda")
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        log(f"[examples] {ex.__name__}: " + json.dumps(out))
+        if out["finished"] != out["submitted"]:
+            raise AssertionError(f"{ex.__name__}: {out['finished']} of "
+                                 f"{out['submitted']} requests finished")
+
+
+def generation_path(torch, counters, name, runs, window, must_launch,
+                    depth=None):
+    """Full-width ``name`` (its depth cut to ``depth`` layers when given)
+    with random bf16 weights from seed 0 generates greedily through
+    ``LM.prefill`` / ``LM.decode_step`` (and ``maybe_flush`` every
+    ``window`` steps) for each (batch, prompt, steps) in ``runs``; a VLM's
+    cross-attention gates are set to ``VLM_GATE`` and its frontend is the
+    arch's count of bf16 patch embeddings drawn from seed 0 (one draw per
+    run). Counters are zeroed just before and read just after; each
+    kernel in ``must_launch`` must have run, B2 once per attention layer
+    (self or cross) and B4 once per Mamba layer per prefill, and B3 once
+    per norm (two a layer with attention, one a Mamba layer, and the
+    final one) per prefill and per decode step. For a MoE model the drops
+    of the prefill and of each step are logged. Then one warm prefill and
+    one decode step of the first run are profiled by kernel."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.configs import get_arch
     from repro_torch.models.model import LM
     arch = get_arch(name)
+    if depth is not None:
+        arch = dataclasses.replace(arch, n_layers=depth)
     model = LM(arch, device="cuda", recent_window=window)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    vlm = any(g.kind == "vlm_super" for g in model.segments)
+    if vlm:
+        for g in ("gate_attn", "gate_mlp"):
+            params["seg0"]["cross"][g].fill_(VLM_GATE)
     torch.cuda.synchronize()
     n_params = _numel(params)
     log(f"[{name}] full width: {arch.n_layers} layers, d_model "
@@ -1188,23 +1309,27 @@ def generation_path(torch, counters, name, runs, window, must_launch):
     rng = np.random.default_rng(0)
     prompts = [torch.as_tensor(rng.integers(2, arch.vocab, (b, s)),
                                device="cuda") for b, s, _ in runs]
+    fgen = torch.Generator(device="cuda").manual_seed(0)
+    fronts = [torch.randn((b, arch.n_frontend_tokens, arch.d_model),
+                          generator=fgen, device="cuda").to(torch.bfloat16)
+              if vlm else None for b, _, _ in runs]
     is_moe = any(g.kind == "moe" for g in model.segments)
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
     results = []
-    for (b, s, steps), toks in zip(runs, prompts):
+    for (b, s, steps), toks, fr in zip(runs, prompts, fronts):
         s_max = s + steps + window
         pre_ms = []
         for _ in range(2):                                # cold, then warm
             t0 = time.perf_counter()
-            logits, _ = model.prefill(params, toks, s_max=s_max)
+            logits, _ = model.prefill(params, toks, s_max=s_max, frontend=fr)
             torch.cuda.synchronize()
             pre_ms.append(1e3 * (time.perf_counter() - t0))
         step_ms, drops = [], [] if is_moe else None
         t0 = time.perf_counter()
         out = generate(torch, model, params, toks, steps, s_max, step_ms,
-                       drops)
+                       drops, frontend=fr)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         if out.shape != (b, steps + 1) or not bool(
@@ -1233,26 +1358,35 @@ def generation_path(torch, counters, name, runs, window, must_launch):
             raise AssertionError(f"{name}: kernel {k} never launched")
     n_mamba = sum(g.n * (g.inner if g.kind == "hyb_super" else 1)
                   for g in model.segments if g.kind in ("mamba", "hyb_super"))
-    n_attn = sum(g.n for g in model.segments if g.kind != "mamba")
+    n_attn = sum(g.n * (g.inner + 1 if g.kind == "vlm_super" else 1)
+                 for g in model.segments if g.kind != "mamba")
     for k, per in (("ssd_scan", n_mamba), ("flash_attention", n_attn)):
         if launches[k] != 3 * len(runs) * per:
             raise AssertionError(f"{name}: {launches[k]} {k} launches, "
                                  f"not {per} per prefill over "
                                  f"{3 * len(runs)} prefills")
+    norms = 1 + sum(g.n * {"mamba": 1, "hyb_super": g.inner + 2,
+                           "vlm_super": 2 * (g.inner + 1)}.get(g.kind, 2)
+                    for g in model.segments)
+    passes = 3 * len(runs) + sum(r[2] for r in runs)
+    if launches["rmsnorm"] != norms * passes:
+        raise AssertionError(f"{name}: {launches['rmsnorm']} rmsnorm "
+                             f"launches, not {norms} per prefill and per "
+                             f"step over {passes}")
 
     b, s, steps = runs[0]
-    toks = prompts[0]
+    toks, fr = prompts[0], fronts[0]
     s_max = s + steps + window
 
     def prefill():
-        logits, _ = model.prefill(params, toks, s_max=s_max)
+        logits, _ = model.prefill(params, toks, s_max=s_max, frontend=fr)
         return int(logits.argmax(-1)[0])
     t0 = time.perf_counter()
     prefill()
     warm = 1e3 * (time.perf_counter() - t0)
     log(f"[{name}] prefill B={b} S={s} " + json.dumps(_summary(
         _device_ms_by_kernel(torch, prefill, n=1), warm)))
-    logits, cache = model.prefill(params, toks, s_max=s_max)
+    logits, cache = model.prefill(params, toks, s_max=s_max, frontend=fr)
     tok = logits.argmax(-1)
 
     def step():
@@ -1406,6 +1540,22 @@ def main() -> int:
                     must_launch=("flash_attention", "rmsnorm"))
     log(f"[moe] qwen2-moe-a2.7b path: {time.perf_counter() - t0:.1f}s "
         f"wall; card {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    vlm_reference_check(torch)
+    log(f"[vlm] reference check: {time.perf_counter() - t0:.1f}s wall")
+    t0 = time.perf_counter()
+    generation_path(torch, counters, "llama-3.2-vision-90b",
+                    runs=((2, 1024, 32),), window=16, depth=10,
+                    must_launch=("flash_attention", "rmsnorm"))
+    log(f"[vlm] llama-3.2-vision-90b path (10 layers): "
+        f"{time.perf_counter() - t0:.1f}s wall; card {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    examples_on_card(torch)
 
     representative = {"rmsnorm": "1024x4096",
                       "flash_attention": "B=1 Sq=1024 Skv=1024 H=32/32 D=128",

@@ -1,5 +1,5 @@
-"""Self-attention for prefill (full sequence, through kernel B2 on CUDA) and
-the reference's staged-cache decode.
+"""Self- and cross-attention for prefill (full sequence, through kernel B2
+on CUDA) and the reference's staged-cache decode.
 
 Decode keeps a large read-only segment ("big", filled by prefill and by
 flushes) plus a small append buffer ("recent"); one token attends to both
@@ -7,7 +7,10 @@ as two partial flash states that are merged explicitly (``attend_partial``
 / ``merge_partials``, plain torch as the reference's are jnp).
 ``flush_cache`` moves recent -> big outside the hot step. The reference's
 sharding ``Policy`` constraints are dropped: the port runs one worker on
-one device. The paged serving engine decodes through kernel B1 instead."""
+one device. The paged serving engine decodes through kernel B1 instead.
+Cross-attention (the VLM family) attends to frontend tokens: prefill
+through B2 without a causal mask, decode against the K/V that prefill
+computed from them, plain torch as the reference's is jnp."""
 from __future__ import annotations
 
 import dataclasses
@@ -86,6 +89,28 @@ def self_attention_full(x: torch.Tensor, p, arch, *,
     return out
 
 
+def cross_attention_full(x: torch.Tensor, kv_src: torch.Tensor, p, arch, *,
+                         return_kv: bool = False):
+    """Cross-attention of x (B, S, D), normed, to the frontend tokens
+    ``kv_src`` (B, T, D), un-normed; no mask. k and v are projected in the
+    type jnp promotes ``kv_src @ wk`` to (fp32 for an fp32 frontend into a
+    bf16 layer), and q joins them there for B2, as the reference's logits
+    are computed in fp32; the output comes back in q's type."""
+    b, s, _ = x.shape
+    t = kv_src.shape[1]
+    hd = arch.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, s, arch.n_heads, hd)
+    dt = torch.promote_types(kv_src.dtype, p["wk"].dtype)
+    src = kv_src.to(dt)
+    k = (src @ p["wk"].to(dt)).reshape(b, t, arch.n_kv_heads, hd)
+    v = (src @ p["wv"].to(dt)).reshape(b, t, arch.n_kv_heads, hd)
+    out = flash_attention(q.to(dt), k, v, causal=False).to(q.dtype)
+    out = out.reshape(b, s, -1) @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
 def self_attention_decode(x: torch.Tensor, cache: AttnCache, p, arch
                           ) -> Tuple[torch.Tensor, AttnCache]:
     """One-token decode with the staged cache. x: (B, D) -> (B, D). The
@@ -119,6 +144,17 @@ def self_attention_decode(x: torch.Tensor, cache: AttnCache, p, arch
                                     v_recent=v_recent,
                                     recent_len=cache.recent_len + 1)
     return out, new_cache
+
+
+def cross_attention_decode(x: torch.Tensor, cross_kv, p,
+                           arch) -> torch.Tensor:
+    """Decode-time cross-attention against the K/V that prefill computed
+    from the frontend (``cross_kv``: (B, T, Hkv, hd) each). x: (B, D)."""
+    b, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, arch.n_heads, arch.resolved_head_dim)
+    k, v = cross_kv
+    out = merge_partials([attend_partial(q, k, v, None)]).to(x.dtype)
+    return out.reshape(b, -1) @ p["wo"]
 
 
 def flush_cache(cache: AttnCache) -> AttnCache:

@@ -1,29 +1,38 @@
 """The port's LM, from the reference's unified builder
-(``repro.models.model.LM``), for ``Family.DENSE``, ``AUDIO``, ``MOE``,
-``SSM`` and ``HYBRID``. A model is a list of segments, each a stack of
-identical layers (a Python loop here, ``lax.scan`` in the reference):
+(``repro.models.model.LM``), for every family: ``Family.DENSE``,
+``AUDIO``, ``MOE``, ``SSM``, ``HYBRID`` and ``VLM``. A model is a list of
+segments, each a stack of identical layers (a Python loop here,
+``lax.scan`` in the reference):
 
   dense/audio:  [dense x L]
   moe:          [dense_mlp x n_dense, moe x (L - n_dense)]
   ssm:          [mamba x L]
   hybrid:       [hyb_super x n_super (inner mamba + one SHARED attention
                  + MLP block), mamba x trailing]
+  vlm:          [vlm_super x n_super (inner dense + one cross-attention
+                 layer)]
 
 Parameters are a plain dict with the reference's leaf names and layout, so
 one tree converts key for key (``repro_torch.convert``): embed (V, D),
 final_ln (D,), head (D, V) unless tied, and seg<i> per segment, each leaf
 stacked over layers as (L, ...); a hybrid super-block segment is
-{"mamba": (n_super, inner, ...) leaves, "attn": one unstacked dense layer}.
+{"mamba": (n_super, inner, ...) leaves, "attn": one unstacked dense layer},
+and a VLM super-block segment {"dense": (n_super, inner, ...) leaves,
+"cross": (n_super, ...) leaves with tanh gates ``gate_attn`` and
+``gate_mlp`` (1,), zero at init}.
 
 Entry points, as in the reference: ``prefill`` (full pass; last-position
 logits and the staged caches), ``decode_step`` (one token through every
 layer) and ``maybe_flush`` (recent -> big on every attention cache; the
-caller runs it every ``recent_window`` steps). Everything runs in the
-parameter dtype (bf16 for the paper's models). On CUDA attention prefill
-goes through kernel B2, every norm through B3 and every Mamba-2 prefill
-through B4; the staged decode and the MoE routing and expert products
-(``models/moe.py``) are plain torch, as the reference's are jnp. The
-cross-attention (VLM) family is not ported yet."""
+caller runs it every ``recent_window`` steps). A VLM's prefill takes the
+frontend's precomputed patch embeddings (B, T, D) (``frontend=``; the
+vision tower is the reference's stub) and its cache keeps their K/V for
+decode. Everything runs in the parameter dtype (bf16 for the paper's
+models), apart from the reference's promotions (an fp32 frontend gives
+fp32 cross K/V). On CUDA attention prefill, self and cross, goes through
+kernel B2, every norm through B3 and every Mamba-2 prefill through B4;
+the staged decode and the MoE routing and expert products
+(``models/moe.py``) are plain torch, as the reference's are jnp."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,7 +45,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, Family, PosEmb
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (RECENT_WINDOW, AttnCache,
-                                          flush_cache, self_attention_decode,
+                                          cross_attention_decode,
+                                          cross_attention_full, flush_cache,
+                                          self_attention_decode,
                                           self_attention_full)
 from repro_torch.models.common import gated_mlp, rms_norm, sinusoidal_pos
 from repro_torch.models.mamba2 import (MambaCache, make_mamba_cache,
@@ -51,9 +62,10 @@ Leaf = Tuple[Tuple[int, ...], float]
 @dataclasses.dataclass(frozen=True)
 class SegmentSpec:
     kind: str                      # dense | dense_mlp | moe | mamba |
-                                   # hyb_super
+                                   # hyb_super | vlm_super
     n: int                         # layers (or super-blocks)
-    inner: int = 1                 # mamba layers per super-block
+    inner: int = 1                 # mamba (hyb_super) or dense
+                                   # (vlm_super) layers per super-block
 
 
 def _attn_leaves(arch: ArchConfig) -> Dict[str, Leaf]:
@@ -82,6 +94,17 @@ def _dense_layer_leaves(arch: ArchConfig, d_ff: int = 0) -> Dict[str, Leaf]:
     out = {"ln1": ((d,), -1.0), "ln2": ((d,), -1.0)}
     out.update(_attn_leaves(arch))
     out.update(_mlp_leaves(arch, d_ff or arch.d_ff))
+    return out
+
+
+def _cross_layer_leaves(arch: ArchConfig) -> Dict[str, Leaf]:
+    """A cross-attention layer: a dense layer's leaves and its two tanh
+    gates, zero at init."""
+    d = arch.d_model
+    out = {"ln1": ((d,), -1.0), "ln2": ((d,), -1.0),
+           "gate_attn": ((1,), 0.0), "gate_mlp": ((1,), 0.0)}
+    out.update(_attn_leaves(arch))
+    out.update(_mlp_leaves(arch, arch.d_ff))
     return out
 
 
@@ -132,6 +155,12 @@ def _layer(seg: Dict[str, torch.Tensor], *idx: int) -> Dict[str, torch.Tensor]:
     return {k: t[idx] for k, t in seg.items()}
 
 
+def _gate(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A cross layer's tanh gate in x's type, taken in fp32 as the
+    reference does."""
+    return torch.tanh(g.float()).to(x.dtype)
+
+
 # segment kinds whose layers hold one self-attention site each
 _ATTN_KINDS = ("dense", "dense_mlp", "moe")
 
@@ -144,11 +173,6 @@ class LM:
     def __init__(self, arch: ArchConfig, device: DeviceLike = None,
                  recent_window: int = RECENT_WINDOW,
                  capacity_factor: Optional[float] = None):
-        if arch.family not in (Family.DENSE, Family.AUDIO, Family.MOE,
-                               Family.SSM, Family.HYBRID):
-            raise NotImplementedError(
-                "repro_torch ports the dense, audio, MoE, SSM and hybrid "
-                f"LMs, not {arch.family.value}")
         self.arch = arch
         self.device = resolve_device(device)
         self.recent_window = recent_window
@@ -167,6 +191,13 @@ class LM:
             return segs + [SegmentSpec("moe", a.n_layers - nd)]
         if a.family == Family.SSM:
             return [SegmentSpec("mamba", a.n_layers)]
+        if a.family == Family.VLM:
+            per = a.cross_attn_every
+            if a.n_layers % per:
+                raise ValueError(f"{a.name}: {a.n_layers} layers are not "
+                                 f"super-blocks of {per}")
+            return [SegmentSpec("vlm_super", a.n_layers // per,
+                                inner=per - 1)]
         per = a.attn_every
         n_super = a.n_layers // per
         trailing = a.n_layers - n_super * per
@@ -193,10 +224,14 @@ class LM:
                 t[f"seg{i}"] = _stack(_moe_layer_leaves(a), seg.n)
             elif seg.kind == "mamba":
                 t[f"seg{i}"] = _stack(_mamba_layer_leaves(a), seg.n)
-            else:
+            elif seg.kind == "hyb_super":
                 t[f"seg{i}"] = {
                     "mamba": _stack(_mamba_layer_leaves(a), seg.n, seg.inner),
                     "attn": _dense_layer_leaves(a)}
+            else:
+                t[f"seg{i}"] = {
+                    "dense": _stack(_dense_layer_leaves(a), seg.n, seg.inner),
+                    "cross": _stack(_cross_layer_leaves(a), seg.n)}
         return t
 
     def init(self, generator: torch.Generator) -> Dict[str, object]:
@@ -273,6 +308,24 @@ class LM:
             out = out + shared_expert_ffn(h, p, a)
         return x + out, cache, aux
 
+    def _cross_layer_full(self, x, p, frontend):
+        a = self.arch
+        h = rms_norm(x, p["ln1"], a.norm_eps)
+        res, kv = cross_attention_full(h, frontend, p, a, return_kv=True)
+        x = x + _gate(p["gate_attn"], x) * res
+        h = rms_norm(x, p["ln2"], a.norm_eps)
+        h = gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act)
+        return x + _gate(p["gate_mlp"], x) * h, kv
+
+    def _cross_layer_decode(self, x, p, cross_kv):
+        a = self.arch
+        h = rms_norm(x, p["ln1"], a.norm_eps)
+        res = cross_attention_decode(h, cross_kv, p, a)
+        x = x + _gate(p["gate_attn"], x) * res
+        h = rms_norm(x, p["ln2"], a.norm_eps)
+        h = gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act)
+        return x + _gate(p["gate_mlp"], x) * h
+
     def _mamba_layer_full(self, x, p):
         h = rms_norm(x, p["ln"], self.arch.norm_eps)
         res, cache = mamba_block_full(h, p, self.arch, return_cache=True)
@@ -296,10 +349,12 @@ class LM:
             x = x + sinusoidal_pos(positions, a.d_model).to(x.dtype)
         return x
 
-    def _forward_full(self, params, x):
+    def _forward_full(self, params, x, frontend=None):
         """x: (B, S, D) -> (final-normed hidden (B, S, D), per-segment raw
-        caches: (k, v) stacks, stacked MambaCaches, or both; aux (2,) fp32:
-        the MoE layers' [load-balance loss, drops] summed)."""
+        caches: (k, v) stacks, stacked MambaCaches, or both, or a VLM's
+        dense (k, v) stacks and cross (k, v); aux (2,) fp32: the MoE
+        layers' [load-balance loss, drops] summed). ``frontend`` (B, T, D)
+        feeds a VLM's cross-attention layers."""
         positions = torch.arange(x.shape[1], device=x.device)
         caches = []
         aux_sum = torch.zeros((2,), dtype=torch.float32, device=x.device)
@@ -324,6 +379,23 @@ class LM:
                     x, c = self._mamba_layer_full(x, _layer(p, li))
                     mcs.append(c)
                 caches.append(MambaCache.stack(mcs))
+            elif seg.kind == "vlm_super":
+                dks, dvs, cks, cvs = [], [], [], []
+                for si in range(seg.n):
+                    ks, vs = [], []
+                    for j in range(seg.inner):
+                        x, (k, v) = self._dense_layer_full(
+                            x, _layer(p["dense"], si, j), positions)
+                        ks.append(k)
+                        vs.append(v)
+                    dks.append(torch.stack(ks))
+                    dvs.append(torch.stack(vs))
+                    x, (k, v) = self._cross_layer_full(
+                        x, _layer(p["cross"], si), frontend)
+                    cks.append(k)
+                    cvs.append(v)
+                caches.append(((torch.stack(dks), torch.stack(dvs)),
+                               (torch.stack(cks), torch.stack(cvs))))
             else:
                 supers, ks, vs = [], [], []
                 for si in range(seg.n):
@@ -346,24 +418,31 @@ class LM:
     def prefill(self, params, tokens: Optional[torch.Tensor] = None,
                 embeds: Optional[torch.Tensor] = None,
                 s_max: Optional[int] = None,
-                logit_pos: Optional[int] = None, return_aux: bool = False):
+                logit_pos: Optional[int] = None, return_aux: bool = False,
+                frontend: Optional[torch.Tensor] = None):
         """tokens: (B, S) int64, or embeds: (B, S, D) (``Family.AUDIO``) ->
         (logits (B, V) fp32 at ``logit_pos`` (default: last), cache), and
         with ``return_aux`` a third item, the MoE layers' summed (2,) fp32
-        [load-balance loss, dropped assignments] (zeros without MoE).
+        [load-balance loss, dropped assignments] (zeros without MoE). A
+        VLM needs ``frontend``, the patch embeddings (B, T, D).
 
         The cache has one entry per segment: an attention dict {k_big,
         v_big (L, B, s_max, Hkv, hd) padded from S, k_rec, v_rec (L, B, W,
-        Hkv, hd) zeros, big_len = S, rec_len = 0}, a stacked MambaCache, or
-        {"mamba", "attn"} for a hybrid super-block segment.
+        Hkv, hd) zeros, big_len = S, rec_len = 0}, a stacked MambaCache,
+        {"mamba", "attn"} for a hybrid super-block segment, or {"dense":
+        an attention dict with leading dims (n_super, inner), "cross_kv":
+        (k, v) each (n_super, B, T, Hkv, hd)} for a VLM's.
 
         ``logit_pos`` supports length-bucketed prefill of attention-only
         models (causal attention makes tail padding inert); tail padding
         would enter an SSM's state, so SSM prompts are never padded."""
+        if frontend is None and any(g.kind == "vlm_super"
+                                    for g in self.segments):
+            raise ValueError(f"{self.arch.name}: prefill needs frontend=")
         x = self._embed_inputs(params, tokens, embeds)
         b, s, _ = x.shape
         s_max = s_max or s
-        h, raw, aux = self._forward_full(params, x)
+        h, raw, aux = self._forward_full(params, x, frontend)
         pos = s - 1 if logit_pos is None else logit_pos
         logits = h[:, pos].float() @ self.head_weight(params).float()
         cache = self._package_cache(raw, b, s, s_max)
@@ -386,15 +465,21 @@ class LM:
                 out.append(self._attn_cache_from_kv(c, b, s, s_max))
             elif seg.kind == "mamba":
                 out.append(c)
-            else:
+            elif seg.kind == "hyb_super":
                 mcs, kv = c
                 out.append({"mamba": mcs,
                             "attn": self._attn_cache_from_kv(kv, b, s,
                                                              s_max)})
+            else:
+                kvs, ckv = c
+                out.append({"dense": self._attn_cache_from_kv(kvs, b, s,
+                                                              s_max),
+                            "cross_kv": ckv})
         return out
 
-    def init_cache(self, batch: int, s_max: int):
-        """Zero cache (fresh generation)."""
+    def init_cache(self, batch: int, s_max: int, frontend_tokens: int = 0):
+        """Zero cache (fresh generation); a VLM's cross K/V hold
+        ``frontend_tokens`` (default: the arch's ``n_frontend_tokens``)."""
         a = self.arch
         hd = a.resolved_head_dim
         dev = self.device
@@ -418,9 +503,17 @@ class LM:
                 out.append(attn_cache(seg.n))
             elif seg.kind == "mamba":
                 out.append(mamba_cache(seg.n))
-            else:
+            elif seg.kind == "hyb_super":
                 out.append({"mamba": mamba_cache(seg.n, seg.inner),
                             "attn": attn_cache(seg.n)})
+            else:
+                nf = frontend_tokens or a.n_frontend_tokens
+
+                def z():
+                    return torch.zeros((seg.n, batch, nf, a.n_kv_heads, hd),
+                                       dtype=self.dtype, device=dev)
+                out.append({"dense": attn_cache(seg.n, seg.inner),
+                            "cross_kv": (z(), z())})
         return out
 
     # -- decode -------------------------------------------------------------
@@ -434,9 +527,14 @@ class LM:
 
     @staticmethod
     def _appended(c, sites: List[AttnCache]):
-        """Stacked cache ``c`` after one decode step through ``sites``."""
-        return {**c, "k_rec": torch.stack([a.k_recent for a in sites]),
-                "v_rec": torch.stack([a.v_recent for a in sites]),
+        """Stacked cache ``c`` after one decode step through ``sites``, in
+        the order of its leading dims."""
+        shape = c["k_rec"].shape
+        return {**c,
+                "k_rec": torch.stack([a.k_recent for a in sites])
+                .reshape(shape),
+                "v_rec": torch.stack([a.v_recent for a in sites])
+                .reshape(shape),
                 "rec_len": c["rec_len"] + 1}
 
     def decode_step(self, params, cache, tokens: torch.Tensor,
@@ -476,6 +574,19 @@ class LM:
                         x, _layer(p, li), c.map(lambda t: t[li]))
                     ncs.append(m)
                 new_cache.append(MambaCache.stack(ncs))
+            elif seg.kind == "vlm_super":
+                cd, sites = c["dense"], []
+                for si in range(seg.n):
+                    for j in range(seg.inner):
+                        x, ac = self._dense_layer_decode(
+                            x, _layer(p["dense"], si, j),
+                            self._unpack_attn(cd, (si, j)))
+                        sites.append(ac)
+                    x = self._cross_layer_decode(
+                        x, _layer(p["cross"], si),
+                        tuple(t[si] for t in c["cross_kv"]))
+                new_cache.append({"dense": self._appended(cd, sites),
+                                  "cross_kv": c["cross_kv"]})
             else:
                 supers, sites = [], []
                 for si in range(seg.n):
@@ -511,7 +622,10 @@ class LM:
                 out.append(flush_attn(c))
             elif seg.kind == "mamba":
                 out.append(c)
-            else:
+            elif seg.kind == "hyb_super":
                 out.append({"mamba": c["mamba"],
                             "attn": flush_attn(c["attn"])})
+            else:
+                out.append({"dense": flush_attn(c["dense"]),
+                            "cross_kv": c["cross_kv"]})
         return out

@@ -2,7 +2,8 @@
 ``LM.maybe_flush``, the staged-cache decode) against the JAX ``LM`` on
 converted weights, for an SSM, a hybrid and a dense arch; twins of the
 reference's decode-consistency and flush tests; and prefill + decode smoke
-runs over every assigned arch whose family the port covers."""
+runs over every assigned arch (the VLM's cross-attention gates set
+nonzero, and an fp32 frontend as the reference's smoke test feeds it)."""
 import dataclasses
 
 import numpy as np
@@ -31,7 +32,7 @@ from repro_torch.models.model import LM  # noqa: E402
 from test_torch_models import _close_model  # noqa: E402
 
 PORTED = (Family.DENSE, Family.AUDIO, Family.MOE, Family.SSM,
-          Family.HYBRID)
+          Family.HYBRID, Family.VLM)
 SMOKE_ARCHS = [n for n in ASSIGNED_ARCHS if get_arch(n).family in PORTED]
 GEN_ARCHS = [("mamba2-1.3b", 2), ("zamba2-7b", 3), ("granite-3-8b", 2)]
 
@@ -237,13 +238,21 @@ def test_prefill_decode_smoke(name):
     params = model.init(torch.Generator().manual_seed(1))
     b, s = 2, 16
     rng = np.random.default_rng(0)
+    kw = {}
+    if arch.family == Family.VLM:
+        # an fp32 frontend, as the reference's smoke test feeds it, and the
+        # cross layers' gates (zero at init) set so that they count
+        kw["frontend"] = torch.from_numpy(rng.standard_normal(
+            (b, arch.n_frontend_tokens, arch.d_model)).astype(np.float32))
+        for g in ("gate_attn", "gate_mlp"):
+            params["seg0"]["cross"][g].fill_(0.5)
     if arch.family == Family.AUDIO:
         emb = torch.from_numpy(rng.standard_normal((b, s, arch.d_model))
                                .astype(np.float32))
         logits, cache = model.prefill(params, embeds=emb, s_max=s + 8)
     else:
         toks = torch.from_numpy(rng.integers(0, arch.vocab, (b, s)))
-        logits, cache = model.prefill(params, toks, s_max=s + 8)
+        logits, cache = model.prefill(params, toks, s_max=s + 8, **kw)
     assert logits.shape == (b, arch.vocab)
     assert torch.isfinite(logits).all()
     tok = logits.argmax(-1)

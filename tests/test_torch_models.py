@@ -156,12 +156,6 @@ def test_init_follows_reference_scales():
     assert torch.equal(again["seg0"]["wd"], seg["wd"])
 
 
-@pytest.mark.parametrize("name", ["llama-3.2-vision-90b"])
-def test_lm_rejects_unported_families(name):
-    with pytest.raises(NotImplementedError):
-        LM(reduced(get_arch(name)), device="cpu")
-
-
 def test_init_draws_a_log_in_fp32():
     """A_log = log U[1, 16] in fp32 whatever the param dtype, D ones."""
     _, ta = _pair("zamba2-7b", "bfloat16", n_layers=5)
