@@ -128,7 +128,38 @@
 14. The port's examples (``repro_torch.examples.quickstart`` and
    ``serve_e2e``: autoscaling, an injected failure, a snapshot) run their
    ``main`` on the card; each finishes every request it submitted.
-15. Prints ``{"kernels": [...]}``, then, last,
+15. Training kernel cases: B2 (bf16, B=2, 4096 x 4096 causal, 32/8 heads
+   of 128) and B3 (bf16, 8192 x 4096) at the training path's shapes,
+   forward and backward through their autograd Functions, held against
+   the plain version's forward and its autograd gradients (2e-2), then
+   timed: the kernel's forward, its backward in PyTorch ops
+   (``flash_attention_bwd``, ``rmsnorm_bwd``), SDPA's or
+   ``F.rms_norm``'s forward and backward, each with its bound
+   (``flash_attention_bwd`` and ``rmsnorm_bwd`` rows).
+16. Training reference check: reduced fp32 granite-3-8b and llama2-7b
+   take 3 train steps (2 microbatches, AdamW) on the card and on the CPU
+   from the same params and batches; every leaf's card gradient exists
+   and is finite, and gradients (each leaf relative to its largest value)
+   and losses agree within 1e-4, parameters after the steps within 1e-4
+   relative plus 0.05 lr (AdamW turns the noise of a near-zero gradient
+   into an update difference of up to lr).
+17. Training path: granite-3-8b at full width cut to 8 of its 40 layers
+   (1.81B random bf16 params from seed 0, fp32 AdamW state) trains on
+   sequences of 4096, a global batch of 4 as 2 microbatches: one warm
+   step, then 5 timed steps; step ms, tokens/s, losses and grad norms
+   (finite, a gate), peak memory, model FLOPs over step time over the
+   bf16 peak, launches (counters zeroed just before the timed steps; B2 8
+   and B3 17 per microbatch, gated), and from a profiled step the device
+   time by kernel, the idle share and the forward / backward / optimizer
+   shares of device time (``train_step.*`` profiler ranges).
+18. The training example (``repro_torch.examples.train_example``, the
+   reference's counts: 200 steps, 2 microbatches, int8 compression,
+   checkpoints every 100) on the card: every loss finite and the last 25
+   steps' mean below the first 25's; then a restart from its step-100
+   checkpoint runs the other 100 steps.
+19. B1 and B4 refuse an input that requires grad (RuntimeError, no
+   launch).
+20. Prints ``{"kernels": [...]}``, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -191,6 +222,14 @@ STATE_TOL = dict(rtol=1e-3, atol=1e-3)     # SSD final state, as the
 # both tanh gates of every VLM cross layer: zero at init, where a cross
 # layer adds nothing and the frontend would not matter
 VLM_GATE = 0.5
+# the training path: granite-3-8b cut to 8 of its 40 layers (parameters,
+# gradients and fp32 AdamW state of all 40 exceed the card's 80 GB); its
+# attention (B, S, Hq, Hkv, D) and norm rows (B * S, d_model) per
+# microbatch
+TRAIN_LAYERS = 8
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 4, 2
+TRAIN_ATTN = (2, 4096, 32, 8, 128)
+TRAIN_NORM = (8192, 4096)
 
 
 def log(*a) -> None:
@@ -1454,6 +1493,422 @@ def moe_drop_probe(torch, name, model, params, toks, s_max):
         f"{time.perf_counter() - t0:.1f}s wall")
 
 
+def _paths(tree, prefix=""):
+    """(key, leaf) of nested dicts in sorted key order."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _paths(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def _fwd_bwd(torch, fn, inputs, dout):
+    """fn's output on copies of ``inputs`` that require grad, and their
+    gradients for ``dout``."""
+    xs = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*xs)
+    return out.detach(), torch.autograd.grad(out, xs, dout)
+
+
+def _retained_bwd(torch, fn, inputs, dout):
+    """A call that runs the backward of one forward of ``fn`` again each
+    time (its graph kept)."""
+    xs = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*xs)
+    return lambda: torch.autograd.grad(out, xs, dout, retain_graph=True)
+
+
+def training_kernel_cases(torch, F, timer, smi):
+    """B2 and B3 at the training path's shapes (granite-3-8b: B=2,
+    4096-token sequences, 32/8 heads of 128; 8192 x 4096 norm rows), in
+    bf16, forward and backward under autograd: each wrapper's output and
+    gradients (the kernel's autograd Function) held against the plain
+    version's forward and its autograd gradients, then timed: the kernel's
+    forward, its backward in PyTorch ops (``flash_attention_bwd``,
+    ``rmsnorm_bwd``) and, beside them, SDPA's or ``F.rms_norm``'s forward
+    and backward, each with its bound. The backward's bound counts the five
+    products of attention's gradient (the scores recomputed) at the bf16
+    rate of its inputs, and the bytes of q, k, v, out and dout read and of
+    dq, dk and dv written once."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd, rmsnorm_ref
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def held(name, got, want):
+        out, grads = got
+        wout, wgrads = want
+        errs = [check_close(torch, g, w, "bf16", f"{name} {what}")
+                for what, g, w in zip(("out", "d0", "d1", "d2"),
+                                      (out,) + grads, (wout,) + wgrads)]
+        return errs[0], max(errs[1:])
+
+    b, s, hq, hkv, d = TRAIN_ATTN
+    q, dout = randn(b, s, hq, d), randn(b, s, hq, d)
+    k, v = randn(b, s, hkv, d), randn(b, s, hkv, d)
+    case = f"B={b} Sq={s} Skv={s} H={hq}/{hkv} D={d} (training)"
+    err_f, err_b = held(
+        "flash " + case,
+        _fwd_bwd(torch, lambda *a: flash_attention(*a, causal=True),
+                 (q, k, v), dout),
+        _fwd_bwd(torch, lambda *a: flash_attention_ref(*a, causal=True),
+                 (q, k, v), dout))
+    out = flash_attention(q, k, v, causal=True)
+    qt, kt, vt, dt = (t.transpose(1, 2) for t in (q, k, v, dout))
+
+    def kern_f():
+        return flash_attention(q, k, v, causal=True)
+
+    def kern_b():
+        return flash_attention_bwd(q, k, v, out, dout, causal=True)
+
+    def lib_f():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    pairs = s * (s + 1) / 2
+    fwd_flops = 4.0 * b * pairs * hq * d
+    fwd_bytes = b * (2 * s * hq * d + 2 * s * hkv * d) * 2
+    record(cases, "flash_attention", case, "bf16", err_f, timer(kern_f),
+           timer(lambda: flash_attention_ref(q, k, v, causal=True)),
+           timer(lib_f), fwd_bytes, {"bf16": fwd_flops},
+           dev=(device_ms(torch, kern_f, n=10,
+                          stem=PORT_KERNELS["flash_attention"]),
+                device_ms(torch, lib_f, n=10)))
+    plain_b = _retained_bwd(
+        torch, lambda *a: flash_attention_ref(*a, causal=True), (q, k, v),
+        dout)
+    p_ms = timer(plain_b)
+    del plain_b
+    lib_b = _retained_bwd(torch, lambda *a: F.scaled_dot_product_attention(
+        *a, is_causal=True, enable_gqa=True), (qt, kt, vt), dt)
+    record(cases, "flash_attention_bwd", case, "bf16", err_b, timer(kern_b),
+           p_ms, timer(lib_b), 2 * fwd_bytes, {"bf16": 2.5 * fwd_flops},
+           dev=(device_ms(torch, kern_b, n=3), device_ms(torch, lib_b, n=5)))
+    del lib_b, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows, dm = TRAIN_NORM
+    x, dy, w = randn(rows, dm), randn(rows, dm), randn(dm)
+    case = f"{rows}x{dm} (training)"
+    err_f, err_b = held(
+        "rmsnorm " + case,
+        _fwd_bwd(torch, lambda *a: rmsnorm(*a, eps=1e-5), (x, w), dy),
+        _fwd_bwd(torch, lambda *a: rmsnorm_ref(*a, eps=1e-5), (x, w), dy))
+
+    def norm_f():
+        return rmsnorm(x, w, eps=1e-5)
+
+    def lib_nf():
+        return F.rms_norm(x, (dm,), w, 1e-5)
+
+    def norm_b():
+        return rmsnorm_bwd(x, w, dy, None, 1e-5)
+    n = rows * dm
+    record(cases, "rmsnorm", case, "bf16", err_f, timer(norm_f),
+           timer(lambda: rmsnorm_ref(x, w, None, 1e-5)), timer(lib_nf),
+           (2 * n + dm) * 2, {"bf16": 4 * n},
+           dev=(device_ms(torch, norm_f, stem=PORT_KERNELS["rmsnorm"]),
+                device_ms(torch, lib_nf)))
+    plain_nb = _retained_bwd(
+        torch, lambda *a: rmsnorm_ref(*a, eps=1e-5), (x, w), dy)
+    lib_nb = _retained_bwd(
+        torch, lambda *a: F.rms_norm(a[0], (dm,), a[1], 1e-5), (x, w), dy)
+    record(cases, "rmsnorm_bwd", case, "bf16", err_b, timer(norm_b),
+           timer(plain_nb), timer(lib_nb), (3 * n + 2 * dm) * 2,
+           {"bf16": 8 * n},
+           dev=(device_ms(torch, norm_b), device_ms(torch, lib_nb)))
+    del plain_nb, lib_nb
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train kernels] card {smi}")
+    return cases
+
+
+def training_reference_check(torch):
+    """Reduced fp32 granite-3-8b (GQA 4/2, tied embeddings) and llama2-7b
+    (heads of 64 and 128, which B2 takes), from the same params and
+    batches on the card (kernels B2 and B3 under autograd) and on the CPU
+    (plain versions): every leaf's gradient on the card exists and is
+    finite and agrees with the CPU's within 1e-4 of the leaf's largest
+    value, the losses of 3 train steps (2 microbatches, AdamW, lr 1e-3)
+    agree within 1e-4 relative, and every parameter after them within
+    1e-4 relative plus 0.05 lr absolute: AdamW divides each element's
+    first moment by the root of its second, so an element whose gradient
+    is near 0 turns the gradients' fp32 noise into an update difference of
+    up to lr (the tolerance of the CPU tests against JAX's steps)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.model import LM
+    from repro_torch.training import (AdamWConfig, DataConfig, TrainConfig,
+                                      batch_at_step, make_train_step)
+    from repro_torch.training.optimizer import (init_opt_state, tree_leaves,
+                                                tree_map)
+    tol, lr = 1e-4, 1e-3
+    for name, d_model in (("granite-3-8b", 256), ("llama2-7b", 512)):
+        arch = dataclasses.replace(
+            reduced(get_arch(name), n_layers=2, d_model=d_model, vocab=512),
+            param_dtype="float32")
+        cpu_params = LM(arch, device="cpu").init(
+            torch.Generator().manual_seed(1))
+        dcfg = DataConfig(vocab=arch.vocab, seq_len=128, global_batch=4)
+        tcfg = TrainConfig(adamw=AdamWConfig(lr=lr, warmup_steps=1,
+                                             total_steps=3),
+                           microbatches=2)
+        runs = []
+        for dev in ("cpu", "cuda"):
+            model = LM(arch, device=dev, loss_chunk=64)
+            params = tree_map(lambda t: t.to(dev), cpu_params)
+            p = tree_map(lambda t: t.detach().requires_grad_(), params)
+            loss, _ = model.train_loss(p, batch_at_step(dcfg, 0, dev))
+            grads = torch.autograd.grad(loss, tree_leaves(p),
+                                        allow_unused=True)
+            opt = init_opt_state(params)
+            step = make_train_step(model, tcfg)
+            losses = []
+            for i in range(3):
+                params, opt, m = step(params, opt,
+                                      batch_at_step(dcfg, i, dev))
+                losses.append(float(m["loss"]))
+            runs.append((grads, losses, tree_leaves(params)))
+        cpu, card = runs
+        keys = [k for k, _ in _paths(cpu_params)]
+        bad = [k for k, g in zip(keys, card[0])
+               if g is None or not bool(torch.isfinite(g).all())]
+        if bad:
+            raise AssertionError(f"{name}: no or non-finite card gradient "
+                                 f"for {bad}")
+
+        def rel(a, b):
+            return float((a.cpu() - b).abs().max()
+                         / b.abs().max().clamp_min(1e-30))
+        def excess(a, b):
+            """How far |a - b| exceeds rtol 1e-4 plus 0.05 lr (<= 0:
+            within)."""
+            a = a.cpu()
+            return float(((a - b).abs() - tol * b.abs() - 0.05 * lr).max())
+        g_err = max(zip(map(rel, card[0], cpu[0]), keys))
+        p_err = max(zip(map(rel, card[2], cpu[2]), keys))
+        p_abs = max(zip((float((a.cpu() - b).abs().max())
+                         for a, b in zip(card[2], cpu[2])), keys))
+        p_out = max(map(excess, card[2], cpu[2]))
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
+        log(f"[train reference] {name} d_model={d_model} fp32, 3 steps: "
+            f"losses card {card[1]} CPU {cpu[1]} (worst "
+            f"relative {l_err:.3g}); every leaf's card gradient finite, "
+            f"worst {g_err[0]:.3g} of its largest ({g_err[1]}); params "
+            f"after the steps worst {p_err[0]:.3g} of the leaf's largest "
+            f"({p_err[1]}), worst absolute {p_abs[0]:.3g} = "
+            f"{p_abs[0] / lr:.3g} lr ({p_abs[1]})")
+        if max(l_err, g_err[0]) > tol or p_out > 0:
+            raise AssertionError(f"{name}: card training differs from the "
+                                 "CPU's beyond the tolerances above")
+
+
+def training_path(torch, counters, smi):
+    """granite-3-8b at full width cut to ``TRAIN_LAYERS`` layers, random
+    bf16 weights from seed 0, trained with AdamW (lr 3e-4, 1 warmup step
+    of 6) on sequences of 4096, a global batch of 4 as 2 microbatches of
+    2: one warm step, then 5 timed steps on ``batch_at_step`` steps 0 and 1
+    in turn. Counters are zeroed just before the timed steps and read
+    after the first and after the last: B2 must launch once per attention
+    layer and B3 once per norm (2 a layer and the final one) per
+    microbatch forward, nothing else. Logs step ms, tokens/s, losses and
+    grad norms (finite, as a gate), peak memory, model FLOPs per step over
+    step time over the card's bf16 peak, and from a profiled step the
+    device time by kernel, the idle share and each phase's share
+    (``train_step.forward`` / ``backward`` / ``optimizer`` ranges: a
+    kernel counts for the range its launching op started in)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import LM
+    from repro_torch.training import (AdamWConfig, DataConfig, TrainConfig,
+                                      batch_at_step, make_train_step)
+    from repro_torch.training.optimizer import init_opt_state
+    arch = dataclasses.replace(get_arch("granite-3-8b"),
+                               n_layers=TRAIN_LAYERS)
+    model = LM(arch, device="cuda", loss_chunk=512)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    n_params = _numel(params)
+    mb, micro, seq = TRAIN_BATCH, TRAIN_MICRO, TRAIN_SEQ
+    tokens = mb * seq
+    log(f"[train] granite-3-8b full width, {arch.n_layers} of 40 layers: "
+        f"d_model {arch.d_model}, {arch.n_heads}/{arch.n_kv_heads} heads "
+        f"of {arch.resolved_head_dim}, d_ff {arch.d_ff}, vocab "
+        f"{arch.vocab}, tied; {n_params / 1e9:.3f}B random bf16 params and "
+        f"fp32 AdamW state in {time.perf_counter() - t0:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-4, warmup_steps=1,
+                                         total_steps=6), microbatches=micro)
+    dcfg = DataConfig(vocab=arch.vocab, seq_len=seq, global_batch=mb)
+    batches = [batch_at_step(dcfg, i, "cuda") for i in (0, 1)]
+    step = make_train_step(model, tcfg)
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batches[0])
+    first = float(m["loss"])
+    warm_s = time.perf_counter() - t0
+
+    for c in counters:
+        c.launches = 0
+    step_ms, losses, gnorms, per_step = [], [], [], None
+    for i in range(5):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[i % 2])
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if per_step is None:
+            per_step = {c.__name__: c.launches for c in counters}
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    want = {c.__name__: 0 for c in counters}
+    want.update(flash_attention=micro * arch.n_layers,
+                rmsnorm=micro * (2 * arch.n_layers + 1))
+    if per_step != want or launches != {k: 5 * v for k, v in want.items()}:
+        raise AssertionError(f"training launches: {per_step} in a step, "
+                             f"{launches} in 5; want {want} a step")
+    if not all(math.isfinite(x) for x in losses + gnorms + [first]):
+        raise AssertionError(f"training: non-finite loss or grad norm "
+                             f"{losses} {gnorms}")
+    pairs = seq * (seq + 1) / 2
+    flops = 6.0 * n_params * tokens + 12.0 * arch.n_layers * mb * pairs \
+        * arch.n_heads * arch.resolved_head_dim
+    mean_ms = float(np.mean(step_ms))
+    result = {
+        "layers": arch.n_layers, "params": n_params, "seq": seq,
+        "global_batch": mb, "microbatches": micro, "warm_step_s": warm_s,
+        "step_ms": step_ms, "mean_step_ms": mean_ms,
+        "tokens_per_s": tokens / (mean_ms / 1e3), "first_loss": first,
+        "losses": losses, "grad_norms": gnorms,
+        "model_flops_per_step": flops,
+        "mfu_bf16_peak": flops / (mean_ms / 1e3) / PEAK_FLOPS["bf16"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_step": per_step, "launches": launches}
+    log("[train] " + json.dumps(result))
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = step(params, opt, batches[0])
+        float(out[2]["loss"])
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    del out
+    events = prof.events()
+    ranges = [(e.name.split(".")[1], e.time_range.start, e.time_range.end)
+              for e in events if e.device_type == torch.autograd.DeviceType.CPU
+              and e.name.startswith("train_step.")]
+    phase = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0, "none": 0.0}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        t = e.time_range.start
+        where = next((n for n, a, b in ranges if a <= t <= b), "none")
+        phase[where] += sum(k.duration for k in e.kernels) / 1e3
+    by_name, n_ops = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.key.startswith("train_step.") \
+                and e.self_device_time_total > 0:
+            by_name[e.key] = e.self_device_time_total / 1e3
+            n_ops += e.count
+    summary = _summary((by_name, n_ops), wall)
+    busy = sum(phase.values())
+    summary["phase_device_ms"] = phase
+    summary["phase_share"] = {k: v / busy for k, v in phase.items()} \
+        if busy else None
+    log("[train] profiled step " + json.dumps(summary))
+    log(f"[train] mean step {mean_ms:.1f} ms, {result['tokens_per_s']:.0f} "
+        f"tokens/s, model FLOPs {flops / 1e12:.1f} T a step = "
+        f"{result['mfu_bf16_peak']:.3f} of the bf16 peak; card {smi}")
+    return launches
+
+
+def train_example_on_card(torch):
+    """The port's training example (``repro_torch.examples.
+    train_example``) with the reference's counts on the card: 200 steps,
+    every loss finite, the mean loss of the last 25 steps below that of the
+    first 25; then, its step-200 checkpoint removed, a restart resumes at
+    step 100 and runs the other 100."""
+    import shutil
+    import tempfile
+
+    from repro_torch.examples import train_example
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        out = train_example.main(device="cuda", steps=200, ckpt=d)
+        wall = time.perf_counter() - t0
+        losses = out["losses"]
+        first, last = float(sum(losses[:25]) / 25), \
+            float(sum(losses[-25:]) / 25)
+        if len(losses) != 200 or not all(map(math.isfinite, losses)) \
+                or not last < first:
+            raise AssertionError(f"train_example: {len(losses)} steps, "
+                                 f"first 25 mean {first}, last 25 {last}")
+        shutil.rmtree(f"{d}/step_00000200")
+        t0 = time.perf_counter()
+        again = train_example.main(device="cuda", steps=200, ckpt=d)
+        if again["start"] != 100 or len(again["losses"]) != 100:
+            raise AssertionError(f"train_example resumed at "
+                                 f"{again['start']}, ran "
+                                 f"{len(again['losses'])} steps")
+        diff = max(abs(a - b) for a, b in zip(again["losses"],
+                                              losses[100:]))
+    log("[examples] train_example: " + json.dumps({
+        "steps": 200, "params": out["params"], "wall_s": wall,
+        "ms_per_step": 1e3 * wall / 200, "first_25_mean": first,
+        "last_25_mean": last, "loss_200": losses[-1],
+        "resume_wall_s": time.perf_counter() - t0,
+        "resumed_max_loss_diff": diff}))
+
+
+def grad_refusals(torch):
+    """B1 and B4 have no backward: on CUDA each raises when an input
+    requires grad, before any launch."""
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    dev = "cuda"
+    q = torch.randn(2, 8, 128, device=dev, requires_grad=True)
+    kp = torch.randn(4, 16, 8, 128, device=dev)
+    bt = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    ln = torch.tensor([5, 9], dtype=torch.int32, device=dev)
+    x = torch.randn(1, 64, 2, 16, device=dev, requires_grad=True)
+    ssd_args = (x, torch.rand(1, 64, 2, device=dev),
+                -torch.rand(2, device=dev),
+                torch.randn(1, 64, 1, 16, device=dev),
+                torch.randn(1, 64, 1, 16, device=dev),
+                torch.ones(2, device=dev))
+    for fn, args in ((paged_decode_attention, (q, kp, kp, bt, ln)),
+                     (ssd_scan, ssd_args)):
+        before = fn.launches
+        try:
+            fn(*args)
+        except RuntimeError as e:
+            if fn.launches != before:
+                raise AssertionError(f"{fn.__name__} launched before "
+                                     "refusing")
+            log(f"[refusal] {fn.__name__} with an input that requires "
+                f"grad: RuntimeError: {e}")
+            continue
+        raise AssertionError(f"{fn.__name__} took an input that requires "
+                             "grad")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1556,6 +2011,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     examples_on_card(torch)
+
+    t0 = time.perf_counter()
+    cases += training_kernel_cases(torch, F, timer, smi)
+    log(f"[train kernels] {time.perf_counter() - t0:.1f}s wall")
+    t0 = time.perf_counter()
+    training_reference_check(torch)
+    log(f"[train reference] {time.perf_counter() - t0:.1f}s wall")
+    t0 = time.perf_counter()
+    training_path(torch, counters, smi)
+    log(f"[train] granite-3-8b path ({TRAIN_LAYERS} layers): "
+        f"{time.perf_counter() - t0:.1f}s wall")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_example_on_card(torch)
+    grad_refusals(torch)
 
     representative = {"rmsnorm": "1024x4096",
                       "flash_attention": "B=1 Sq=1024 Skv=1024 H=32/32 D=128",

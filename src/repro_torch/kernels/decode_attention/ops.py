@@ -160,13 +160,21 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_table: torch.Tensor,
                            lengths: torch.Tensor, *,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """See paged_decode_ref. On CUDA, block_table and lengths are int32."""
+    """See paged_decode_ref. On CUDA, block_table and lengths are int32,
+    and an input that requires grad while grad mode is on is refused with
+    a RuntimeError: the kernel has no backward."""
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pages, v_pages, block_table, lengths,
                                 scale)
     if q.device.type != "cuda":
         raise ValueError("paged_decode_attention: unsupported device "
                          f"{q.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_pages, v_pages)):
+        raise RuntimeError(
+            "paged_decode_attention: kernel B1 has no backward on CUDA "
+            "(ROADMAP.md, queue B, 'Backward for B4 and B1'); decode runs "
+            "under torch.no_grad()")
     if q.dim() != 3 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         raise ValueError(f"paged_decode_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")

@@ -140,11 +140,24 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     scale: Optional[float] = None,
                     kv_chunk: int = 256) -> torch.Tensor:
     """Causal (or not) GQA attention. q: (B, Sq, Hq, D); k, v: (B, Skv,
-    Hkv, D) -> (B, Sq, Hq, D). ``kv_chunk`` shapes only the plain version."""
+    Hkv, D) -> (B, Sq, Hq, D). ``kv_chunk`` shapes only the plain version.
+
+    On CUDA, when grad mode is on and q, k or v requires grad, the kernel
+    runs inside ``_FlashAttention``, whose backward is
+    ``flash_attention_bwd``; otherwise it launches bare."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                                    kv_len=kv_len, scale=scale,
                                    kv_chunk=kv_chunk)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kv_len, causal, int(q_offset),
+                                     scale)
+    return _launch(q, k, v, causal, q_offset, kv_len, scale)
+
+
+def _launch(q, k, v, causal, q_offset, kv_len, scale) -> torch.Tensor:
+    """Check the inputs, launch the CUDA kernel and count the launch."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -193,7 +206,106 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """B2 under autograd: the kernel's forward, and ``flash_attention_bwd``
+    (PyTorch ops) as its backward. The reference has no backward kernel:
+    its gradient is XLA's autodiff of the jnp attention, outside Pallas.
+    ``kv_len`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal, q_offset, scale):
+        out = _launch(q, k, v, causal, q_offset, kv_len, scale)
+        ctx.save_for_backward(q, k, v, out, kv_len)
+        ctx.args = (causal, q_offset, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, kv_len = ctx.saved_tensors
+        causal, q_offset, scale = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                         q_offset=q_offset, kv_len=kv_len,
+                                         scale=scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
+                        q_offset: int = 0,
+                        kv_len: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None,
+                        block_elems: int = 1 << 26):
+    """Gradients (dq, dk, dv) of attention with output ``out`` and output
+    gradient ``dout``, in closed form, in fp32, returned in the inputs'
+    types: the gradient the reference's autodiff takes of its masked
+    softmax attention.
+
+    Query rows go in chunks whose fp32 score block (B, Hq, rows, keys)
+    holds at most ``block_elems`` values; under causal masking a chunk
+    reads only the keys its last row can see. For each chunk: the scores
+    S = q k^T * scale with masked logits at NEG_INF, each row's logsumexp
+    recomputed, P = exp(S - lse) (zero where masked), delta = rowsum(dout
+    * out), dV += P^T dO, dS = P * (dO V^T - delta), dQ = dS K * scale,
+    dK += dS^T Q * scale, with dK and dV summed over each GQA group. A row
+    that sees no key gets the mean of V over all Skv keys in the forward
+    (the uniform softmax of all-NEG_INF logits): its dQ is 0, it gives no
+    dK, and it adds dO / Skv to every key's dV."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    q_offset = int(q_offset)
+    dev = q.device
+    f32 = torch.float32
+    dq = torch.zeros((b, sq, hkv, g, d), dtype=f32, device=dev)
+    dk = torch.zeros((b, skv, hkv, d), dtype=f32, device=dev)
+    dv = torch.zeros((b, skv, hkv, d), dtype=f32, device=dev)
+    kf, vf = k.float(), v.float()
+    kpos = torch.arange(skv, device=dev)
+    rows = max(1, min(sq, block_elems // max(1, b * hq * skv)))
+    for r0 in range(0, sq, rows):
+        r1 = min(sq, r0 + rows)
+        n = r1 - r0
+        kend = min(skv, max(0, r1 + q_offset)) if causal else skv
+        if kend == 0:
+            continue
+        qc, oc, doc = (t[:, r0:r1].float().reshape(b, n, hkv, g, d)
+                       for t in (q, out, dout))
+        kc, vc = kf[:, :kend], vf[:, :kend]
+        mask = torch.ones((1, 1, 1, n, kend), dtype=torch.bool, device=dev)
+        if causal:
+            qpos = torch.arange(r0, r1, device=dev) + q_offset
+            mask = mask & (qpos[:, None] >= kpos[None, :kend])
+        if kv_len is not None:
+            mask = mask & (kpos[:kend] < kv_len.to(dev)[:, None]
+                           )[:, None, None, None, :]
+        s = torch.einsum("bnhgd,bkhd->bhgnk", qc, kc) * scale
+        s = torch.where(mask, s, NEG_INF)
+        lse = torch.logsumexp(s, dim=-1, keepdim=True)
+        p = torch.where(mask, torch.exp(s - lse), 0.0)
+        del s, lse
+        delta = (doc * oc).sum(-1).permute(0, 2, 3, 1)[..., None]
+        dv[:, :kend] += torch.einsum("bhgnk,bnhgd->bkhd", p, doc)
+        ds = p * (torch.einsum("bnhgd,bkhd->bhgnk", doc, vc) - delta)
+        del p
+        dq[:, r0:r1] = torch.einsum("bhgnk,bkhd->bnhgd", ds, kc) * scale
+        dk[:, :kend] += torch.einsum("bhgnk,bnhgd->bkhd", ds, qc) * scale
+    if kv_len is not None or (causal and q_offset < 0):
+        seen = torch.full((b, sq), skv, device=dev)
+        if causal:
+            qpos = torch.arange(sq, device=dev) + q_offset
+            seen = torch.minimum(seen, (qpos + 1).clamp_min(0))
+        if kv_len is not None:
+            seen = torch.minimum(seen, kv_len.to(dev)[:, None])
+        dead = (seen <= 0).to(f32)[:, :, None, None, None]
+        if skv:
+            lost = (dout.float().reshape(b, sq, hkv, g, d) * dead) \
+                .sum(dim=(1, 3))
+            dv += (lost / skv)[:, None]
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 flash_attention.launches = 0
 
-__all__ = ["flash_attention", "flash_attention_ref", "attention_dense_ref",
-           "launch_plan", "tile_rows"]
+__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_ref",
+           "attention_dense_ref", "launch_plan", "tile_rows"]

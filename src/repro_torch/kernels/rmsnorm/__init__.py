@@ -1,3 +1,3 @@
-from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd, rmsnorm_ref
 
-__all__ = ["rmsnorm", "rmsnorm_ref"]
+__all__ = ["rmsnorm", "rmsnorm_bwd", "rmsnorm_ref"]

@@ -50,14 +50,25 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """x: (..., D); w: (D,); optional residual like x. See rmsnorm_ref.
 
-    On CUDA the host work of a call is kept under F.rms_norm's: after the
-    checks, one allocation and a launch through the library's CPython
-    binding (which raises on a CUDA error) on the raw handle of the
-    current stream."""
+    On CUDA, when grad mode is on and an input requires grad, the kernel
+    runs inside ``_RMSNorm``, whose backward is ``rmsnorm_bwd``; otherwise
+    it launches bare, and the host work of a call is kept under
+    F.rms_norm's: after the checks, one allocation and a launch through
+    the library's CPython binding (which raises on a CUDA error) on the
+    raw handle of the current stream."""
     if not x.is_cuda:
         if x.device.type == "cpu":
             return rmsnorm_ref(x, w, residual, eps)
         raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    if torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad
+            or (residual is not None and residual.requires_grad)):
+        return _RMSNorm.apply(x, w, residual, eps)
+    return _launch(x, w, residual, eps)
+
+
+def _launch(x, w, residual, eps) -> torch.Tensor:
+    """Check the inputs, launch the CUDA kernel and count the launch."""
     _check(x, w, residual)
     d = x.shape[-1]
     y = torch.empty_like(x)
@@ -73,6 +84,46 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+class _RMSNorm(torch.autograd.Function):
+    """B3 under autograd: the kernel's forward, and ``rmsnorm_bwd``
+    (PyTorch ops) as its backward. The reference has no backward kernel:
+    its gradient is XLA's autodiff of the jnp norm, outside Pallas."""
+
+    @staticmethod
+    def forward(ctx, x, w, residual, eps):
+        y = _launch(x, w, residual, eps)
+        ctx.save_for_backward(x, w, residual)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, residual = ctx.saved_tensors
+        return (*rmsnorm_bwd(x, w, dy, residual, ctx.eps), None)
+
+
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                eps: float = 1e-5):
+    """Gradients (dx, dw, dresidual) of ``rmsnorm_ref`` in closed form, in
+    fp32, returned in the inputs' types (dresidual is None without a
+    residual): with x' = x + residual, rstd = rsqrt(mean(x'^2) + eps),
+    x^ = x' * rstd and g = dy * w,
+    dx = rstd * (g - x^ * mean(g * x^)), dw = sum over rows of dy * x^,
+    and the residual gets dx."""
+    xf = x.float()
+    if residual is not None:
+        xf = xf + residual.float()
+    rstd = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * rstd
+    dyf = dy.float()
+    g = dyf * w.float()
+    dxf = rstd * (g - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+    dw = (dyf * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+    return (dxf.to(x.dtype), dw.to(w.dtype),
+            None if residual is None else dxf.to(residual.dtype))
+
+
 rmsnorm.launches = 0
 
-__all__ = ["rmsnorm", "rmsnorm_ref"]
+__all__ = ["rmsnorm", "rmsnorm_bwd", "rmsnorm_ref"]

@@ -203,7 +203,9 @@ def ssd_scan(x, dt, A, Bm, Cm, D, init_state: Optional[torch.Tensor] = None,
     N) fp32). On CUDA the kernel takes any S: the within-chunk decay
     restarts every ``chunk`` positions as in ``ssd_chunked_ref``, and a
     ragged last chunk acts as if its missing positions had dt = 0 and
-    x = 0, which is the recurrence's own result."""
+    x = 0, which is the recurrence's own result. On CUDA it refuses, with
+    a RuntimeError, an input that requires grad while grad mode is on: the
+    kernel has no backward yet."""
     s = x.shape[1]
     if x.device.type == "cpu":
         chunk = min(chunk, s)
@@ -212,6 +214,13 @@ def ssd_scan(x, dt, A, Bm, Cm, D, init_state: Optional[torch.Tensor] = None,
         return ssd_chunked_ref(x, dt, A, Bm, Cm, D, init_state, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, D, init_state)):
+        raise RuntimeError(
+            "ssd_scan: kernel B4 has no backward on CUDA yet (ROADMAP.md, "
+            "queue B, 'Backward for B4 and B1'); run under torch.no_grad(),"
+            " or train Mamba-2 and hybrid models on the CPU")
     if x.dim() != 4 or Bm.dim() != 4 or Cm.shape != Bm.shape:
         raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, Bm "
                          f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)}")

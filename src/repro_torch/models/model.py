@@ -21,11 +21,14 @@ and a VLM super-block segment {"dense": (n_super, inner, ...) leaves,
 "cross": (n_super, ...) leaves with tanh gates ``gate_attn`` and
 ``gate_mlp`` (1,), zero at init}.
 
-Entry points, as in the reference: ``prefill`` (full pass; last-position
-logits and the staged caches), ``decode_step`` (one token through every
-layer) and ``maybe_flush`` (recent -> big on every attention cache; the
-caller runs it every ``recent_window`` steps). A VLM's prefill takes the
-frontend's precomputed patch embeddings (B, T, D) (``frontend=``; the
+Entry points, as in the reference: ``train_loss`` (full causal pass and a
+chunked softmax cross-entropy, differentiable on the CPU and, through the
+autograd Functions of kernels B2 and B3, on CUDA), ``prefill`` (full
+pass; last-position logits and the staged caches), ``decode_step`` (one
+token through every layer) and ``maybe_flush`` (recent -> big on every
+attention cache; the caller runs it every ``recent_window`` steps). A
+VLM's prefill takes the frontend's precomputed patch embeddings (B, T,
+D) (``frontend=``; the
 vision tower is the reference's stub) and its cache keeps their K/V for
 decode. Everything runs in the parameter dtype (bf16 for the paper's
 models), apart from the reference's promotions (an fp32 frontend gives
@@ -41,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, Family, PosEmb
 from repro_torch.device import DeviceLike, resolve_device
@@ -155,6 +159,16 @@ def _layer(seg: Dict[str, torch.Tensor], *idx: int) -> Dict[str, torch.Tensor]:
     return {k: t[idx] for k, t in seg.items()}
 
 
+def _layers(seg: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+    """A stacked segment's per-layer leaves along its leading dim, as views
+    from ``unbind``: under autograd each stacked leaf then gets one
+    gradient, stacked once, not a full-size one per layer as indexing
+    gives."""
+    keys = list(seg)
+    return [dict(zip(keys, ts))
+            for ts in zip(*(seg[k].unbind(0) for k in keys))]
+
+
 def _gate(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A cross layer's tanh gate in x's type, taken in fp32 as the
     reference does."""
@@ -167,16 +181,21 @@ _ATTN_KINDS = ("dense", "dense_mlp", "moe")
 
 class LM:
     """``capacity_factor`` (default: the arch's ``moe.capacity_factor``)
-    sizes the MoE layers' static expert capacity, as the reference's
-    ``ExecConfig.capacity_factor`` does."""
+    sizes the MoE layers' static expert capacity, ``loss_chunk`` the
+    sequence chunk of ``train_loss``'s cross-entropy, and ``remat`` runs
+    each layer body of ``train_loss`` under activation checkpointing, as
+    the reference's ``ExecConfig`` fields of those names do."""
 
     def __init__(self, arch: ArchConfig, device: DeviceLike = None,
                  recent_window: int = RECENT_WINDOW,
-                 capacity_factor: Optional[float] = None):
+                 capacity_factor: Optional[float] = None,
+                 loss_chunk: int = 512, remat: bool = False):
         self.arch = arch
         self.device = resolve_device(device)
         self.recent_window = recent_window
         self.capacity_factor = capacity_factor
+        self.loss_chunk = loss_chunk
+        self.remat = remat
         self.dtype = torch.bfloat16 if arch.param_dtype == "bfloat16" \
             else torch.float32
         self.segments = self._build_segments()
@@ -267,11 +286,12 @@ class LM:
         return params["head"]
 
     # -- layer bodies -------------------------------------------------------
-    def _dense_layer_full(self, x, p, positions):
+    def _dense_layer_full(self, x, p, positions, return_cache=True):
         a = self.arch
         h = rms_norm(x, p["ln1"], a.norm_eps)
-        res, kv = self_attention_full(h, p, a, positions=positions,
-                                      return_kv=True)
+        res = self_attention_full(h, p, a, positions=positions,
+                                  return_kv=return_cache)
+        res, kv = res if return_cache else (res, None)
         x = x + res
         h = rms_norm(x, p["ln2"], a.norm_eps)
         return x + gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act), kv
@@ -284,11 +304,12 @@ class LM:
         h = rms_norm(x, p["ln2"], a.norm_eps)
         return x + gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act), cache
 
-    def _moe_layer_full(self, x, p, positions):
+    def _moe_layer_full(self, x, p, positions, return_cache=True):
         a = self.arch
         h = rms_norm(x, p["ln1"], a.norm_eps)
-        res, kv = self_attention_full(h, p, a, positions=positions,
-                                      return_kv=True)
+        res = self_attention_full(h, p, a, positions=positions,
+                                  return_kv=return_cache)
+        res, kv = res if return_cache else (res, None)
         x = x + res
         h = rms_norm(x, p["ln2"], a.norm_eps)
         out, aux = moe_ffn(h, p, a, self.capacity_factor)
@@ -308,10 +329,11 @@ class LM:
             out = out + shared_expert_ffn(h, p, a)
         return x + out, cache, aux
 
-    def _cross_layer_full(self, x, p, frontend):
+    def _cross_layer_full(self, x, p, frontend, return_cache=True):
         a = self.arch
         h = rms_norm(x, p["ln1"], a.norm_eps)
-        res, kv = cross_attention_full(h, frontend, p, a, return_kv=True)
+        res = cross_attention_full(h, frontend, p, a, return_kv=return_cache)
+        res, kv = res if return_cache else (res, None)
         x = x + _gate(p["gate_attn"], x) * res
         h = rms_norm(x, p["ln2"], a.norm_eps)
         h = gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act)
@@ -326,9 +348,10 @@ class LM:
         h = gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act)
         return x + _gate(p["gate_mlp"], x) * h
 
-    def _mamba_layer_full(self, x, p):
+    def _mamba_layer_full(self, x, p, return_cache=True):
         h = rms_norm(x, p["ln"], self.arch.norm_eps)
-        res, cache = mamba_block_full(h, p, self.arch, return_cache=True)
+        res = mamba_block_full(h, p, self.arch, return_cache=return_cache)
+        res, cache = res if return_cache else (res, None)
         return x + res, cache
 
     def _mamba_layer_decode(self, x, p, cache: MambaCache):
@@ -340,7 +363,10 @@ class LM:
     def _embed_inputs(self, params, tokens=None, embeds=None):
         a = self.arch
         if embeds is None:
-            embeds = params["embed"][tokens]
+            # F.embedding, not indexing: the same rows, and on the CPU its
+            # backward sums a repeated token's rows in a fixed order
+            # (indexing's accumulates them in parallel, in any order)
+            embeds = F.embedding(tokens, params["embed"])
             if a.tie_embeddings:
                 embeds = embeds * math.sqrt(a.d_model)
         x = embeds.to(self.dtype)
@@ -349,70 +375,121 @@ class LM:
             x = x + sinusoidal_pos(positions, a.d_model).to(x.dtype)
         return x
 
-    def _forward_full(self, params, x, frontend=None):
+    def _forward_full(self, params, x, frontend=None, return_cache=True):
         """x: (B, S, D) -> (final-normed hidden (B, S, D), per-segment raw
         caches: (k, v) stacks, stacked MambaCaches, or both, or a VLM's
         dense (k, v) stacks and cross (k, v); aux (2,) fp32: the MoE
         layers' [load-balance loss, drops] summed). ``frontend`` (B, T, D)
-        feeds a VLM's cross-attention layers."""
+        feeds a VLM's cross-attention layers. Without ``return_cache``
+        (``train_loss``) no cache is built and each segment's entry is
+        None; with ``remat`` each layer body runs under activation
+        checkpointing."""
         positions = torch.arange(x.shape[1], device=x.device)
+        rc = return_cache
+
+        def run(body, *args):
+            if self.remat:
+                return checkpoint(body, *args, use_reentrant=False)
+            return body(*args)
+
+        def dense(y, lp):
+            return run(self._dense_layer_full, y, lp, positions, rc)
+
+        def mamba(y, lp):
+            return run(self._mamba_layer_full, y, lp, rc)
+
+        def stacked(pairs):
+            """(k, v) of each attention layer -> stacked (k, v), or None
+            without caches."""
+            if not rc:
+                return None
+            return tuple(torch.stack(t) for t in zip(*pairs))
+
         caches = []
         aux_sum = torch.zeros((2,), dtype=torch.float32, device=x.device)
         for i, seg in enumerate(self.segments):
             p = params[f"seg{i}"]
             if seg.kind in _ATTN_KINDS:
-                ks, vs = [], []
-                for li in range(seg.n):
+                kvs = []
+                for lp in _layers(p):
                     if seg.kind == "moe":
-                        x, (k, v), aux = self._moe_layer_full(
-                            x, _layer(p, li), positions)
+                        x, kv, aux = run(self._moe_layer_full, x, lp,
+                                         positions, rc)
                         aux_sum = aux_sum + aux
                     else:
-                        x, (k, v) = self._dense_layer_full(
-                            x, _layer(p, li), positions)
-                    ks.append(k)
-                    vs.append(v)
-                caches.append((torch.stack(ks), torch.stack(vs)))
+                        x, kv = dense(x, lp)
+                    kvs.append(kv)
+                caches.append(stacked(kvs))
             elif seg.kind == "mamba":
                 mcs = []
-                for li in range(seg.n):
-                    x, c = self._mamba_layer_full(x, _layer(p, li))
+                for lp in _layers(p):
+                    x, c = mamba(x, lp)
                     mcs.append(c)
-                caches.append(MambaCache.stack(mcs))
+                caches.append(MambaCache.stack(mcs) if rc else None)
             elif seg.kind == "vlm_super":
-                dks, dvs, cks, cvs = [], [], [], []
-                for si in range(seg.n):
-                    ks, vs = [], []
-                    for j in range(seg.inner):
-                        x, (k, v) = self._dense_layer_full(
-                            x, _layer(p["dense"], si, j), positions)
-                        ks.append(k)
-                        vs.append(v)
-                    dks.append(torch.stack(ks))
-                    dvs.append(torch.stack(vs))
-                    x, (k, v) = self._cross_layer_full(
-                        x, _layer(p["cross"], si), frontend)
-                    cks.append(k)
-                    cvs.append(v)
-                caches.append(((torch.stack(dks), torch.stack(dvs)),
-                               (torch.stack(cks), torch.stack(cvs))))
+                dkvs, ckvs = [], []
+                for dp, cp in zip(_layers(p["dense"]), _layers(p["cross"])):
+                    kvs = []
+                    for lp in _layers(dp):
+                        x, kv = dense(x, lp)
+                        kvs.append(kv)
+                    dkvs.append(stacked(kvs))
+                    x, kv = run(self._cross_layer_full, x, cp, frontend, rc)
+                    ckvs.append(kv)
+                caches.append((stacked(dkvs), stacked(ckvs)) if rc
+                              else None)
             else:
-                supers, ks, vs = [], [], []
-                for si in range(seg.n):
+                supers, kvs = [], []
+                for sp in _layers(p["mamba"]):
                     inner = []
-                    for j in range(seg.inner):
-                        x, c = self._mamba_layer_full(
-                            x, _layer(p["mamba"], si, j))
+                    for lp in _layers(sp):
+                        x, c = mamba(x, lp)
                         inner.append(c)
-                    supers.append(MambaCache.stack(inner))
-                    x, (k, v) = self._dense_layer_full(x, p["attn"],
-                                                       positions)
-                    ks.append(k)
-                    vs.append(v)
-                caches.append((MambaCache.stack(supers),
-                               (torch.stack(ks), torch.stack(vs))))
+                    supers.append(MambaCache.stack(inner) if rc else None)
+                    x, kv = dense(x, p["attn"])
+                    kvs.append(kv)
+                caches.append((MambaCache.stack(supers), stacked(kvs))
+                              if rc else None)
         return (rms_norm(x, params["final_ln"], self.arch.norm_eps), caches,
                 aux_sum)
+
+    # -- training loss --------------------------------------------------------
+    def train_loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        """batch: {"tokens" (B, S) int64 | "embeds" (B, S, D), "labels" (B,
+        S), and a VLM's "frontend" (B, T, D)} -> (loss, metrics {"xent",
+        "lb_loss", "moe_drops"}), fp32 scalars. Labels < 0 are masked. The
+        cross-entropy goes over sequence chunks of ``loss_chunk`` (the
+        whole sequence when it does not divide S); each chunk's logits are
+        the fp32 product of the bf16 hidden state and head, which is exact
+        in fp32 as the reference's ``preferred_element_type=float32``
+        product, and are never rounded to bf16. For MoE the loss adds
+        0.01 * lb_loss / n_layers."""
+        x = self._embed_inputs(params, batch.get("tokens"),
+                               batch.get("embeds"))
+        h, _, aux = self._forward_full(params, x, batch.get("frontend"),
+                                       return_cache=False)
+        labels = batch["labels"]
+        w = self.head_weight(params).float()
+        b, s, d = h.shape
+        chunk = min(self.loss_chunk or s, s)
+        if s % chunk:
+            chunk = s
+        vocab = torch.arange(w.shape[1], device=h.device)
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+        for c0 in range(0, s, chunk):
+            lc = labels[:, c0:c0 + chunk]
+            logits = h[:, c0:c0 + chunk].float() @ w
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = torch.where(lc[..., None] == vocab, logits, 0.0).sum(-1)
+            mask = lc >= 0
+            tot = tot + torch.where(mask, lse - tgt, 0.0).sum()
+            cnt = cnt + mask.sum()
+        loss = tot / torch.clamp_min(cnt, 1)
+        metrics = {"xent": loss, "lb_loss": aux[0], "moe_drops": aux[1]}
+        if self.arch.moe is not None:
+            loss = loss + 0.01 * aux[0] / max(self.arch.n_layers, 1)
+        return loss, metrics
 
     # -- prefill ------------------------------------------------------------
     def prefill(self, params, tokens: Optional[torch.Tensor] = None,

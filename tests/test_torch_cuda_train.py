@@ -1,0 +1,230 @@
+"""Training on the card: kernels B2 and B3 under autograd.
+
+On CUDA, B2 (flash attention) and B3 (RMSNorm) run inside
+``torch.autograd.Function``s whose forward is the kernel and whose
+backward is the closed-form gradient in PyTorch ops
+(``flash_attention_bwd``, ``rmsnorm_bwd``). Each is held here, forward
+and gradients, against autograd of its plain version on the same CUDA
+tensors: B2 over the grid of ``tests/test_torch_cuda_flash.py`` (causal
+and not, query groups 1-8, head dims 64, 112 and 128, key counts 1, 63,
+64, 65, 1601 and 4096), B3 over the grid of its CPU sweep. B1 and B4 have
+no backward and must refuse an input that requires grad. A reduced fp32
+model's every parameter gets a finite gradient on the card, equal to the
+CPU's.
+
+These tests need an NVIDIA card and nvcc (the kernels are built at first
+use); without a card they skip. On the GPU machine:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_train.py
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_arch, reduced  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    paged_decode_attention)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_ref)
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.training import DataConfig, batch_at_step  # noqa: E402
+from repro_torch.training.optimizer import tree_leaves, tree_map  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = [torch.float32, torch.bfloat16]
+TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+       torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, dev, dtype, *shape):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _grads_against_plain(kernel_fn, plain_fn, inputs, dout):
+    """Forward and gradients of ``kernel_fn`` (the wrapper, on CUDA inputs
+    that require grad) and of ``plain_fn`` under autograd."""
+    outs = []
+    for fn in (kernel_fn, plain_fn):
+        xs = [t.detach().clone().requires_grad_() for t in inputs]
+        y = fn(*xs)
+        outs.append((y, torch.autograd.grad(y, xs, dout)))
+    torch.cuda.synchronize()
+    return outs
+
+
+def _close(got, want, dtype):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+FLASH_GRID = [
+    # b, sq, skv, hq, hkv, d, causal, dtypes
+    (1, 128, 128, 4, 4, 64, True, DTYPES),         # MHA square
+    (2, 64, 64, 8, 2, 64, True, DTYPES),           # GQA
+    (2, 128, 128, 8, 1, 64, False, DTYPES),        # MQA, full
+    (1, 32, 128, 4, 4, 128, True, DTYPES),         # rectangular, q_offset
+    (2, 100, 1, 8, 8, 128, False, DTYPES),         # key counts at the edges
+    (2, 100, 63, 8, 2, 128, False, DTYPES),        # of the 64-key tiles
+    (2, 100, 64, 8, 1, 128, False, DTYPES),
+    (2, 100, 65, 8, 8, 128, False, DTYPES),
+    (2, 100, 1601, 8, 1, 128, False, DTYPES),      # the VLM frontend's
+    (2, 256, 256, 32, 32, 112, True, [torch.bfloat16]),   # zamba2's heads
+    (1, 512, 4096, 8, 2, 128, False, DTYPES),      # 4096 keys
+    (1, 4096, 4096, 8, 2, 128, True, [torch.bfloat16]),   # training length
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,dtype", [
+    case[:7] + (dt,) for case in FLASH_GRID for dt in case[7]])
+def test_flash_function_matches_autograd_of_plain(card, b, sq, skv, hq, hkv,
+                                                   d, causal, dtype):
+    gen = torch.Generator(device=card).manual_seed(sq * 7 + skv)
+    q = _randn(gen, card, dtype, b, sq, hq, d)
+    k, v = (_randn(gen, card, dtype, b, skv, hkv, d) for _ in range(2))
+    dout = _randn(gen, card, dtype, b, sq, hq, d)
+    q_offset = skv - sq if causal else 0
+    before = flash_attention.launches
+    (out, grads), (want, wgrads) = _grads_against_plain(
+        lambda *a: flash_attention(*a, causal=causal, q_offset=q_offset),
+        lambda *a: flash_attention_ref(*a, causal=causal, q_offset=q_offset),
+        (q, k, v), dout)
+    assert flash_attention.launches == before + 1
+    assert out.grad_fn is not None
+    _close(out, want, dtype)
+    for g, w in zip(grads, wgrads):
+        _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_function_kv_len_and_masked_rows(card, dtype):
+    """q_offset and kv_len, with a sequence that sees no key (its rows
+    get the mean of V, so dQ is 0 and dV gets dO / Skv)."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    q = _randn(gen, card, dtype, 2, 64, 8, 128)
+    k, v = (_randn(gen, card, dtype, 2, 200, 4, 128) for _ in range(2))
+    dout = _randn(gen, card, dtype, 2, 64, 8, 128)
+    kl = torch.tensor([0, 150], dtype=torch.int32, device=card)
+    (out, grads), (want, wgrads) = _grads_against_plain(
+        lambda *a: flash_attention(*a, causal=True, q_offset=136, kv_len=kl),
+        lambda *a: flash_attention_ref(*a, causal=True, q_offset=136,
+                                       kv_len=kl), (q, k, v), dout)
+    _close(out, want, dtype)
+    for g, w in zip(grads, wgrads):
+        _close(g, w, dtype)
+    assert not bool(grads[0][0].float().any())
+
+
+def test_flash_without_grad_launches_bare(card):
+    q, k, v = (torch.randn(1, 64, 4, 64, device=card) for _ in range(3))
+    assert flash_attention(q, k, v).grad_fn is None
+    q.requires_grad_()
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+    assert flash_attention(q, k, v).grad_fn is not None
+
+
+@pytest.mark.parametrize("shape", [(4, 64), (2, 8, 128), (1, 256), (3, 96)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_res", [False, True])
+def test_rmsnorm_function_matches_autograd_of_plain(card, shape, dtype,
+                                                     with_res):
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+    x, r, dy = (_randn(gen, card, dtype, *shape) for _ in range(3))
+    w = _randn(gen, card, dtype, shape[-1])
+    inputs = (x, w, r) if with_res else (x, w)
+    before = rmsnorm.launches
+    (y, grads), (want, wgrads) = _grads_against_plain(
+        lambda *a: rmsnorm(*a, eps=1e-5), lambda *a: rmsnorm_ref(*a, eps=1e-5),
+        inputs, dy)
+    assert rmsnorm.launches == before + 1 and y.grad_fn is not None
+    _close(y, want, dtype)
+    for g, w_ in zip(grads, wgrads):
+        _close(g, w_, dtype)
+
+
+def test_rmsnorm_function_training_shape(card):
+    gen = torch.Generator(device=card).manual_seed(8)
+    x, dy = (_randn(gen, card, torch.bfloat16, 8192, 4096) for _ in range(2))
+    w = _randn(gen, card, torch.bfloat16, 4096)
+    (y, grads), (want, wgrads) = _grads_against_plain(
+        lambda *a: rmsnorm(*a, eps=1e-5), lambda *a: rmsnorm_ref(*a, eps=1e-5),
+        (x, w), dy)
+    _close(y, want, torch.bfloat16)
+    _close(grads[0], wgrads[0], torch.bfloat16)
+    # dw sums 8192 rows: bf16 rounding of the sum, relative to its size
+    torch.testing.assert_close(grads[1].float(), wgrads[1].float(),
+                               rtol=2e-2, atol=2e-2 * float(
+                                   wgrads[1].float().abs().max()))
+
+
+def test_paged_decode_refuses_grad(card):
+    q = torch.randn(2, 8, 128, device=card, requires_grad=True)
+    kp = torch.randn(4, 16, 8, 128, device=card)
+    bt = torch.zeros((2, 2), dtype=torch.int32, device=card)
+    ln = torch.tensor([5, 9], dtype=torch.int32, device=card)
+    before = paged_decode_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        paged_decode_attention(q, kp, kp, bt, ln)
+    assert paged_decode_attention.launches == before
+    with torch.no_grad():
+        assert paged_decode_attention(q, kp, kp, bt, ln).shape == q.shape
+
+
+def test_ssd_scan_refuses_grad(card):
+    b, s, h, p, g, n = 1, 64, 2, 16, 1, 16
+    x = torch.randn(b, s, h, p, device=card, requires_grad=True)
+    dt = torch.rand(b, s, h, device=card)
+    a = -torch.rand(h, device=card)
+    bm, cm = (torch.randn(b, s, g, n, device=card) for _ in range(2))
+    d = torch.ones(h, device=card)
+    before = ssd_scan.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan(x, dt, a, bm, cm, d, chunk=32)
+    assert ssd_scan.launches == before
+    with torch.no_grad():
+        assert ssd_scan(x, dt, a, bm, cm, d, chunk=32)[0].shape == x.shape
+
+
+@pytest.mark.parametrize("name,d_model", [("granite-3-8b", 256),
+                                          ("llama2-7b", 512)])
+def test_every_parameter_gets_the_cpus_gradient(card, name, d_model):
+    """Reduced fp32 model (heads of 64 or 128): on the card every leaf's
+    gradient exists, is finite and equals the CPU's within 1e-4 of the
+    leaf's largest; B2 and B3 launched in the forward."""
+    arch = dataclasses.replace(
+        reduced(get_arch(name), n_layers=2, d_model=d_model, vocab=512),
+        param_dtype="float32")
+    params = LM(arch, device="cpu").init(torch.Generator().manual_seed(1))
+    batch = batch_at_step(DataConfig(vocab=512, seq_len=128,
+                                     global_batch=2), 0)
+    grads = {}
+    for dev in ("cpu", card):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        n2, n3 = flash_attention.launches, rmsnorm.launches
+        loss, _ = LM(arch, device=dev, loss_chunk=64).train_loss(p, b)
+        leaves = tree_leaves(p)
+        grads[str(dev)] = torch.autograd.grad(loss, leaves,
+                                              allow_unused=True)
+        if dev == card:
+            assert flash_attention.launches - n2 == 2
+            assert rmsnorm.launches - n3 == 5
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert g is not None and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))

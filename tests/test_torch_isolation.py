@@ -58,7 +58,8 @@ def test_port_file_imports_no_jax_or_reference(path):
 
 def test_importing_the_port_loads_no_jax_or_reference():
     code = ("import sys, repro_torch.serving.cluster, "
-            "repro_torch.launch.serve, repro_torch.convert\n"
+            "repro_torch.launch.serve, repro_torch.convert, "
+            "repro_torch.launch.train, repro_torch.examples.train_example\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -81,7 +82,7 @@ def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_refuse_cpu_by_default(monkeypatch):
+def test_entry_points_refuse_cpu_by_default(monkeypatch, tmp_path):
     _no_cuda(monkeypatch)
     arch = reduced(get_arch("llama2-7b"), n_layers=2, d_model=32, vocab=64)
     params = LM(arch, device="cpu").init(torch.Generator().manual_seed(0))
@@ -97,6 +98,13 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch):
         ServingCluster(arch, params, SLO(1.0, 1.0), engine_cfg=cfg)
     with pytest.raises(RuntimeError):
         PagedEngine(arch, params, cfg, device="cuda")
+    from repro_torch.examples import train_example
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_example.main(steps=1, ckpt=str(tmp_path))
+    assert not any(tmp_path.iterdir())
     # asked for explicitly, the CPU works
     assert PagedEngine(arch, params, cfg, device="cpu").device.type == "cpu"
 
