@@ -159,7 +159,30 @@
    checkpoint runs the other 100 steps.
 19. B1 and B4 refuse an input that requires grad (RuntimeError, no
    launch).
-20. Prints ``{"kernels": [...]}``, then, last,
+20. The Scenario API's compiled whole-trace core
+   (``kernels/fastsim/csrc/whole_trace.cu``, reached through
+   ``serving/fastsim_jax.py`` as ``engine="jax"``): (a) the small traces
+   of ``tests/test_torch_fastsim.py`` (a heterogeneous fleet, the grid
+   trace under aladdin and jsq, a lone arrival, two tenants whose backlog
+   the EDF sort reorders, a 2/4/6-worker bracket) through the kernel,
+   held against its plain version and the numpy core
+   (``engine="vectorized"``): integers equal,
+   times within 1e-12 relative, report floats within 1e-9, beats equal;
+   the largest relative difference is logged. (b) The reference's
+   ``scale`` scenario (``benchmarks/bench_cluster_sim.py``, built from the
+   port's copies): llama2-70b workers on 4 A100s each at the paper's SLO,
+   max batch 32, inert KV; a diurnal trace at 11.574 req/s, amplitude
+   0.6, seed 5; its one-tenth slice (864 s at a 0.25 s heartbeat, ~10^4
+   requests) on 24 workers, the kernel against the plain version and
+   ``engine="jax"`` against ``engine="vectorized"`` request by request,
+   each timed. (c) ``optimize()`` on the slice (lo 16, hi 40, target
+   0.98) on both engines: the same fleet and attainment; evaluations,
+   wall seconds and each bracket launch's device ms (CUDA events around
+   the host side's calls). (d) The full day (8640 s at 0.02 s, ~10^5
+   requests, 24 workers) on the card in one launch: finished, attainment,
+   p99 TTFT, beats, wall and device ms, beats per second. The launch
+   counter is zeroed before (c) and read after (d).
+21. Prints ``{"kernels": [...]}``, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -187,7 +210,8 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM datasheet
 # iteration and the breakdown's decode-step wall, NVIDIA H100 80GB HBM3 at
 # 700 W
 RUN_F_MS = {"main_mean_decode": 48.7, "breakdown_decode_wall": 49.8}
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+# fp64: outside the tensor cores, where the simulation core computes
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "fp64": 34e12}
 TOL = {"fp32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
 
 REPLACES = {
@@ -196,6 +220,7 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:76",
     "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:33",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:70",
+    "fastsim_whole_trace": "src/repro/serving/fastsim_jax.py:185",
 }
 SOURCES = {
     "paged_decode_attention":
@@ -204,6 +229,8 @@ SOURCES = {
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
     "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+    "fastsim_whole_trace":
+        "src/repro_torch/kernels/fastsim/csrc/whole_trace.cu",
 }
 # the port's kernels by a stem of their device function names
 PORT_KERNELS = {"paged_decode_attention": "paged_decode_kernel",
@@ -1877,6 +1904,369 @@ def train_example_on_card(torch):
         "resumed_max_loss_diff": diff}))
 
 
+# ---- the Scenario API's compiled simulation core ----------------------------
+#
+# The reference's `scale` scenario (benchmarks/bench_cluster_sim.py), built
+# here from the port's copies: llama2-70b on 4 A100s per worker at the
+# paper's SLO, max batch 32, inert KV, a diurnal trace at 11.574 req/s
+# (amplitude 0.6, seed 5); the one-tenth slice (864 s at a 0.25 s
+# heartbeat) is held request by request against the numpy core and sized by
+# optimize(); the full day (8640 s at 0.02 s) runs on the card alone.
+SCALE_RATE, SCALE_SEED, SCALE_WORKERS = 11.574, 5, 24
+SCALE_SLICE = (864.0, 0.25)
+SCALE_DAY = (8640.0, 0.02)
+SCALE_OPT = dict(lo=16, hi=40, attain_target=0.98)
+FASTSIM_REL = 1e-12          # per-request floats; integers exact
+REPORT_REL = 1e-9            # report floats (finish-order means)
+
+
+def _scale_scenario(api, spec, slo, wl, duration, hb, n, engine):
+    cfg = wl.WorkloadConfig(mean_rate=SCALE_RATE, duration=duration,
+                            seed=SCALE_SEED, in_mu=5.0, in_sigma=1.1,
+                            out_mu=5.3, out_sigma=0.9)
+    return api.Scenario(
+        workload=lambda: wl.diurnal_trace(cfg, amplitude=0.6,
+                                          period=duration),
+        fleet=api.FleetSpec([api.PoolSpec(spec, n)]), slo=slo,
+        topology=api.Colocated(heartbeat=hb), scaling=api.FixedScale(),
+        engine=engine)
+
+
+def _kernel_inputs(api, fj, sc, device, n_active=None):
+    """The whole-trace kernel's inputs for a scenario, as its host side
+    builds them; ``n_active`` defaults to the whole fleet."""
+    sc = api.resolve_scenario(sc)
+    specs = fj.check_jax_envelope(sc)
+    ordered, arrival, l_in, l_real = fj._trace_arrays(sc.materialize())
+    multi = sc.tenants is not None and len(sc.tenants) > 1
+    return fj._kernel_inputs(
+        sc, specs, ordered, arrival, l_in, l_real,
+        len(specs) if n_active is None else n_active, device, edf=multi)
+
+
+def _held_outputs(torch, got, want, what: str):
+    """The kernel's outputs against the plain version's: integers equal,
+    floats within FASTSIM_REL, NaN where NaN. Returns the largest
+    relative and absolute differences of the floats."""
+    rel = err = 0.0
+    for name, g, w in zip(("l_out", "t_decode_spent", "t_first_token",
+                           "t_finish", "beats"), got, want):
+        g = g.cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"[fastsim] {what}: {name} {g.shape} "
+                                 f"{g.dtype} != {w.shape} {w.dtype}")
+        if w.dtype == torch.int64:
+            if not torch.equal(g, w):
+                raise AssertionError(f"[fastsim] {what}: {name} differs")
+            continue
+        if not torch.equal(g.isnan(), w.isnan()):
+            raise AssertionError(f"[fastsim] {what}: {name} NaNs differ")
+        ok = ~w.isnan()
+        d = (g[ok] - w[ok]).abs()
+        if d.numel():
+            err = max(err, float(d.max()))
+            rel = max(rel, float((d / w[ok].abs().clamp_min(1e-300)).max()))
+    if rel > FASTSIM_REL:
+        raise AssertionError(f"[fastsim] {what}: relative difference {rel} "
+                             f"over {FASTSIM_REL}")
+    return rel, err
+
+
+def _held_requests(want, got, what: str) -> float:
+    """Two engines' outcomes request by request (traces of one
+    materialization): integers equal, times within FASTSIM_REL. Returns
+    the largest relative difference."""
+    rel = 0.0
+    key = lambda r: (r.arrival, r.id)  # noqa: E731
+    if len(want) != len(got):
+        raise AssertionError(f"[fastsim] {what}: {len(got)} requests, "
+                             f"want {len(want)}")
+    for a, b in zip(sorted(want, key=key), sorted(got, key=key)):
+        if a.l_out != b.l_out or (a.t_finish is None) != (b.t_finish is None) \
+                or (a.t_first_token is None) != (b.t_first_token is None):
+            raise AssertionError(f"[fastsim] {what}: request {a.id} differs")
+        for x, y in ((a.t_first_token, b.t_first_token),
+                     (a.t_finish, b.t_finish),
+                     (a.t_decode_spent, b.t_decode_spent)):
+            if x is not None and x != y:
+                rel = max(rel, abs(x - y) / max(abs(x), 1e-300))
+    if rel > FASTSIM_REL:
+        raise AssertionError(f"[fastsim] {what}: relative difference {rel} "
+                             f"over {FASTSIM_REL}")
+    return rel
+
+
+def _held_rows(want: dict, got: dict, what: str) -> None:
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, float):
+            if math.isnan(w) != math.isnan(g) or (
+                    not math.isnan(w) and abs(g - w) > REPORT_REL * abs(w)
+                    + 1e-12):
+                raise AssertionError(f"[fastsim] {what}: {k} {g} != {w}")
+        elif w != g:
+            raise AssertionError(f"[fastsim] {what}: {k} {g} != {w}")
+
+
+class LaunchTimes:
+    """Times every launch of the whole-trace kernel that its host side
+    (``serving/fastsim_jax.py``) makes while the context is open: CUDA
+    events around each ``whole_trace`` call, read at once (the host side
+    reads the outputs right after the call anyway). ``ms`` lists them,
+    ``candidates`` the fleet sizes each launch simulated."""
+
+    def __init__(self, torch, fj):
+        self.torch, self.fj, self.ms, self.candidates = torch, fj, [], []
+
+    def __enter__(self):
+        torch, inner = self.torch, self.fj.whole_trace
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*args, **kw)
+            end.record()
+            end.synchronize()
+            self.ms.append(start.elapsed_time(end))
+            self.candidates.append(args[3].reshape(-1).tolist())
+            return out
+
+        self.inner, self.fj.whole_trace = inner, timed
+        return self
+
+    def __exit__(self, *exc):
+        self.fj.whole_trace = self.inner
+
+
+def fastsim_phase(torch, smi):
+    """(a) the small traces of the CPU twins through the kernel, held
+    against the plain version and the numpy core; (b) the `scale` slice,
+    kernel against plain version and ``engine="jax"`` against
+    ``engine="vectorized"``; (c) optimize() on the slice on both engines;
+    (d) the full day on the card. Returns the kernels-line case (the
+    slice) and the launches of (c) and (d)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.perf_model import (DecodeModel, KVModel,
+                                             PerfModel, PrefillModel)
+    from repro_torch.core.request import Request
+    from repro_torch.core.slo import PAPER_SLOS, SLO
+    from repro_torch.core.worker_config import (A100_80G, WorkerSpec,
+                                                make_worker_spec)
+    from repro_torch.kernels.fastsim import whole_trace
+    from repro_torch.serving import api
+    from repro_torch.serving import fastsim_jax as fj
+    from repro_torch.serving import workload as wl
+    from repro_torch.serving.fastsim import run_colocated_vectorized
+    from repro_torch.serving.tenants import materialize_tenants
+
+    cuda = torch.device("cuda")
+    grid_spec = WorkerSpec(
+        perf=PerfModel(kv=KVModel(h=0.0, j=0.0),
+                       prefill=PrefillModel(k1=2.2e-5, c1=8e-3),
+                       decode=DecodeModel(k2=6e-6, c2=3.5e-4, c3=9e-3)),
+        kv_capacity=1e18, max_batch=24, n_accelerators=2, name="eq-jax")
+    slo = PAPER_SLOS["llama2-70b"]
+    base = make_worker_spec(get_arch("llama2-70b"), A100_80G, slo, n_g=4)
+    spec = dataclasses.replace(base, max_batch=32, perf=PerfModel(
+        prefill=base.perf.prefill, decode=base.perf.decode))
+
+    def small(trace, n, policy, s=SLO(2.0, 0.2), tenants=None):
+        return api.Scenario(
+            workload=trace, fleet=api.FleetSpec([api.PoolSpec(grid_spec,
+                                                              n)]),
+            slo=s, tenants=tenants, topology=api.Colocated(policy=policy),
+            scaling=api.FixedScale(), engine="jax")
+
+    grid = wl.generate_trace(wl.WorkloadConfig(
+        mean_rate=3.0, duration=20.0, seed=11, tail_frac=0.3, in_mu=4.6,
+        out_mu=4.4, out_sigma=1.0))
+    tenants = [
+        api.TenantSpec(name="chat", workload=lambda: wl.generate_trace(
+            wl.WorkloadConfig(mean_rate=4.0, duration=20.0, seed=17,
+                              tail_frac=0.2, in_mu=4.6, out_mu=4.2,
+                              out_sigma=1.0)),
+            slo=SLO(ttft=0.6, atgt=0.060), priority=1, tier="interactive"),
+        api.TenantSpec(name="eval", workload=lambda: wl.generate_trace(
+            wl.WorkloadConfig(mean_rate=4.0, duration=20.0, seed=23,
+                              tail_frac=0.3, in_mu=5.0, out_mu=4.8,
+                              out_sigma=1.1)),
+            slo=SLO(ttft=5.0, atgt=0.200), priority=0, tier="batch")]
+    merged = materialize_tenants(tenants)
+    lone = [Request(l_in=96, l_pred=0, l_real=40, arrival=0.4)]
+    big = WorkerSpec(
+        perf=PerfModel(kv=KVModel(h=0.0, j=0.0),
+                       prefill=PrefillModel(k1=1.1e-5, c1=5e-3),
+                       decode=DecodeModel(k2=3e-6, c2=2.0e-4, c3=6e-3)),
+        kv_capacity=1e18, max_batch=32, n_accelerators=4)
+    mixed = dataclasses.replace(
+        small(wl.generate_trace(wl.WorkloadConfig(
+            mean_rate=4.0, duration=25.0, seed=2, tail_frac=0.25,
+            in_mu=5.0, out_mu=4.8, out_sigma=1.1)), 1, "aladdin"),
+        fleet=api.FleetSpec([api.PoolSpec(grid_spec, 1),
+                             api.PoolSpec(big, 2)]),
+        topology=api.Colocated(heartbeat=0.1, theta=0.8, gamma=0.25))
+    cases = {"heterogeneous fleet": mixed,
+             "grid aladdin": small(grid, 2, "aladdin"),
+             "grid jsq": small(grid, 2, "jsq"),
+             "lone arrival": small(lone, 2, "aladdin"),
+             "two tenants, EDF backlog, aladdin":
+                 small(merged, 1, "aladdin", tenants=tenants),
+             "two tenants, EDF backlog, jsq":
+                 small(merged, 1, "jsq", tenants=tenants)}
+    rel = err = 0.0
+    t0 = time.perf_counter()
+    for what, sc in cases.items():
+        args, st = _kernel_inputs(api, fj, sc, "cpu")
+        want = whole_trace(*args, **st)
+        got = whole_trace(*(a.to(cuda) for a in args), **st)
+        r, e = _held_outputs(torch, got, want, what)
+        rel, err = max(rel, r), max(err, e)
+        jx_t, vec_t = wl.clone_trace(sc.workload), wl.clone_trace(
+            sc.workload)
+        jx = fj.run_colocated_jax(dataclasses.replace(sc, workload=jx_t))
+        vec = run_colocated_vectorized(dataclasses.replace(
+            sc, workload=vec_t, engine="vectorized"))
+        rel = max(rel, _held_requests(vec_t, jx_t, what))
+        _held_rows(vec.row(), jx.row(), what)
+        if jx.beats != vec.beats:
+            raise AssertionError(f"[fastsim] {what}: beats {jx.beats} != "
+                                 f"{vec.beats}")
+        log(f"[fastsim small] {what}: {len(jx_t)} requests, finished "
+            f"{jx.finished}, beats {jx.beats}, attainment {jx.attainment}")
+    bracket = wl.generate_trace(wl.WorkloadConfig(mean_rate=6.0,
+                                                  duration=15.0, seed=5))
+    scs = [small(wl.clone_trace(bracket), n, "aladdin", s=SLO(1.0, 0.1))
+           for n in (2, 4, 6)]
+    args, st = _kernel_inputs(api, fj, scs[-1], "cpu", [2, 4, 6])
+    r, e = _held_outputs(torch, whole_trace(*(a.to(cuda) for a in args),
+                                            **st),
+                         whole_trace(*args, **st), "bracket 2/4/6")
+    rel, err = max(rel, r), max(err, e)
+    for sc, rep in zip(scs, fj.run_candidate_batch(scs)):
+        vec = run_colocated_vectorized(dataclasses.replace(
+            sc, workload=wl.clone_trace(bracket), engine="vectorized"))
+        _held_rows(vec.row(), rep.row(), f"bracket {rep.peak_workers}")
+    log(f"[fastsim small] six scenarios and a 3-candidate bracket held: "
+        f"largest relative difference {rel}, absolute {err}; "
+        f"{time.perf_counter() - t0:.1f}s wall")
+
+    # (b) the scale slice
+    dur, hb = SCALE_SLICE
+    sc_j = _scale_scenario(api, spec, slo, wl, dur, hb, SCALE_WORKERS, "jax")
+    args, st = _kernel_inputs(api, fj, sc_j, "cpu")
+    n = int(args[0].shape[0])
+    t0 = time.perf_counter()
+    want = whole_trace(*args, **st)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    dev_args = [a.to(cuda) for a in args]
+    whole_trace(*dev_args, **st)                    # warm: module import
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    got = whole_trace(*dev_args, **st)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    kern_ms = start.elapsed_time(end)
+    r, e = _held_outputs(torch, got, want, "scale slice")
+    rel, err = max(rel, r), max(err, e)
+    l_out = int(want[0].sum())
+    B = max(st["maxb"])
+    nbytes = n * 6 * 8 + 8 + 8 * 8 * SCALE_WORKERS + n * 4 * 8 + 8
+    # operations: at least the 4 fp64 operations of one decode iteration
+    # for every max-batch of generated tokens
+    slice_case = {
+        "kernel": "fastsim_whole_trace", "case": f"scale slice {n} requests "
+        f"{SCALE_WORKERS} workers hb {hb}", "dtype": "fp64",
+        "max_abs_err": err, "kernel_ms": kern_ms, "device_ms": kern_ms,
+        "plain_ms": plain_ms, "library_ms": None}
+    b_ms, b_by = bound(nbytes, {"fp64": 4.0 * l_out / B})
+    slice_case.update(bound_ms=b_ms, bound_by=b_by)
+    log(json.dumps(slice_case))
+    t0 = time.perf_counter()
+    jx_t = sc_j.materialize()
+    jx = api.run(dataclasses.replace(sc_j, workload=jx_t))
+    jax_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vec_t = sc_j.materialize()
+    vec = api.run(dataclasses.replace(sc_j, workload=vec_t,
+                                      engine="vectorized"))
+    vec_wall = time.perf_counter() - t0
+    rel = max(rel, _held_requests(vec_t, jx_t, "scale slice"))
+    _held_rows(vec.row(), jx.row(), "scale slice")
+    if jx.beats != vec.beats:
+        raise AssertionError(f"[fastsim] scale slice: beats {jx.beats} != "
+                             f"{vec.beats}")
+    log("[fastsim slice] " + json.dumps({
+        "requests": n, "workers": SCALE_WORKERS, "heartbeat": hb,
+        "finished": jx.finished, "total": jx.total,
+        "attainment": jx.attainment, "p99_ttft": jx.p99_ttft,
+        "beats": jx.beats, "kernel_device_ms": kern_ms,
+        "kernel_host_ms": host_ms, "plain_ms": plain_ms,
+        "jax_run_wall_s": jax_wall, "vectorized_run_wall_s": vec_wall,
+        "largest_rel_diff": rel, "card": smi}))
+
+    # (c) optimize() on the slice, both engines; (d) the day on the card.
+    # The launch counter is zeroed just before and read just after.
+    whole_trace.launches = 0
+    plans = {}
+    for engine in ("jax", "vectorized"):
+        sc = _scale_scenario(api, spec, slo, wl, dur, hb, SCALE_WORKERS,
+                             engine)
+        t0 = time.perf_counter()
+        with LaunchTimes(torch, fj) as times:
+            plan = api.optimize(sc, **SCALE_OPT)
+        per_launch = times.ms if engine == "jax" else None
+        fleets = times.candidates if engine == "jax" else None
+        plans[engine] = plan
+        log("[fastsim optimize] " + json.dumps({
+            "engine": engine, "n_workers": plan.n_workers,
+            "attainment": plan.report.attainment, "evals": plan.evals,
+            "wall_s": time.perf_counter() - t0,
+            "kernel_device_ms_per_launch": per_launch,
+            "fleet_sizes_per_launch": fleets}))
+    jp, vp = plans["jax"], plans["vectorized"]
+    if (jp.n_workers, jp.report.attainment) \
+            != (vp.n_workers, vp.report.attainment):
+        raise AssertionError(f"[fastsim] optimize: jax {jp.n_workers} "
+                             f"workers at {jp.report.attainment}, "
+                             f"vectorized {vp.n_workers} at "
+                             f"{vp.report.attainment}")
+    dur, hb = SCALE_DAY
+    sc = _scale_scenario(api, spec, slo, wl, dur, hb, SCALE_WORKERS, "jax")
+    t0 = time.perf_counter()
+    trace = sc.materialize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with LaunchTimes(torch, fj) as times:
+        day = api.run(dataclasses.replace(sc, workload=trace))
+    wall = time.perf_counter() - t0
+    dev = times.ms
+    if not (day.finished > 0 and math.isfinite(day.p99_ttft)
+            and 0.0 < day.attainment <= 1.0 and len(dev) == 1):
+        raise AssertionError(f"[fastsim] full day: {day.row()}, kernel "
+                             f"launches seen {dev}")
+    launches = whole_trace.launches
+    log("[fastsim day] " + json.dumps({
+        "requests": day.total, "finished": day.finished,
+        "workers": SCALE_WORKERS, "heartbeat": hb,
+        "attainment": day.attainment, "p99_ttft": day.p99_ttft,
+        "beats": day.beats, "trace_generation_s": gen_s,
+        "run_wall_ms": wall * 1e3, "device_ms": dev[0],
+        "beats_per_s_wall": day.beats / wall,
+        "beats_per_s_device": day.beats / (dev[0] / 1e3),
+        "launches_optimize_and_day": launches, "card": smi}))
+    if launches < 2:
+        raise AssertionError(f"[fastsim] the kernel ran {launches} times on "
+                             "the main path")
+    return slice_case, launches
+
+
 def grad_refusals(torch):
     """B1 and B4 have no backward: on CUDA each raises when an input
     requires grad, before any launch."""
@@ -2027,6 +2417,11 @@ def main() -> int:
     train_example_on_card(torch)
     grad_refusals(torch)
 
+    t0 = time.perf_counter()
+    fastsim_case, fastsim_launches = fastsim_phase(torch, smi)
+    log(f"[fastsim] Scenario phase: {time.perf_counter() - t0:.1f}s wall; "
+        f"card {smi}")
+
     representative = {"rmsnorm": "1024x4096",
                       "flash_attention": "B=1 Sq=1024 Skv=1024 H=32/32 D=128",
                       "paged_decode_attention": "B=8 H=32/32 D=128 page=16 "
@@ -2048,6 +2443,16 @@ def main() -> int:
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"], "at": rep["case"],
             "dtype": rep["dtype"]})
+    c = fastsim_case
+    kernels.append({
+        "name": "fastsim_whole_trace", "route": "cuda",
+        "source": SOURCES["fastsim_whole_trace"],
+        "replaces": REPLACES["fastsim_whole_trace"],
+        "launches": fastsim_launches, "max_abs_err": c["max_abs_err"],
+        "ms": c["kernel_ms"], "device_ms": c["device_ms"],
+        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "library_ms": None, "at": c["case"],
+        "dtype": c["dtype"]})
     if not all(math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("kernel time not measured")
     log(smi)                       # nvidia-smi name, power.limit

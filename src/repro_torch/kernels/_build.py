@@ -143,8 +143,8 @@ def build() -> Path:
 def module():
     """The library imported as the extension module ``_kernels``: one
     function per kernel (``paged_decode``, ``flash_attention``,
-    ``rmsnorm``, ``ssd_scan``), each taking its C entry point's arguments
-    and raising ``RuntimeError`` on a CUDA error."""
+    ``rmsnorm``, ``ssd_scan``, ``whole_trace``), each taking its C entry
+    point's arguments and raising ``RuntimeError`` on a CUDA error."""
     if _state.module is None:
         spec = importlib.util.spec_from_file_location(
             "repro_torch.kernels._kernels", build())

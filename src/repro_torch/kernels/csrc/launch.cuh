@@ -35,4 +35,15 @@ int ssd_scan_launch(const void* x, const void* dt, const void* A,
                     void* entry, void* cum, int B, int S, int H, int P, int G,
                     int N, int Q, int bf16, void* stream);
 
+// The Scenario API's whole-trace simulation core (fastsim/csrc): one CTA
+// per candidate fleet size; `par` is (8, W) float64 per-worker parameters
+int whole_trace_launch(const void* arrival, const void* l_in,
+                       const void* l_real, const void* rank,
+                       const void* ttft_r, const void* atgt_r,
+                       const void* n_active, const void* par, void* out_lo,
+                       void* out_f, void* beats, void* queue, int n, int W,
+                       int B, int C, double hb, double horizon, double theta,
+                       double gamma, double ttft, double atgt, int aladdin,
+                       int edf, int tagged, void* stream);
+
 }  // extern "C"

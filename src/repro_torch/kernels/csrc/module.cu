@@ -17,19 +17,20 @@ namespace {
 
 // A launch's arguments, read before the launch by a format of one letter
 // per argument: 'p' an address (a Python int, or None for null), 'i' an
-// int, 'f' a float. `ok` is false, with a Python error set, when the count
-// or a value does not fit.
+// int, 'f' a float, 'd' a double. `ok` is false, with a Python error set,
+// when the count or a value does not fit.
 struct Args {
   union {
     void* p;
     int i;
     float f;
-  } v[24];
+    double d;
+  } v[32];
   bool ok = false;
 
   Args(PyObject* const* a, Py_ssize_t n, const char* fmt, const char* name) {
     const Py_ssize_t want = static_cast<Py_ssize_t>(strlen(fmt));
-    if (n != want) {
+    if (n != want || want > 32) {
       PyErr_Format(PyExc_TypeError, "%s: %zd arguments expected, got %zd",
                    name, want, n);
       return;
@@ -43,6 +44,8 @@ struct Args {
           PyErr_Format(PyExc_OverflowError, "%s: argument %zd out of int "
                        "range", name, k);
         v[k].i = static_cast<int>(x);
+      } else if (fmt[k] == 'd') {
+        v[k].d = PyFloat_AsDouble(a[k]);
       } else {
         v[k].f = static_cast<float>(PyFloat_AsDouble(a[k]));
       }
@@ -53,6 +56,7 @@ struct Args {
   void* p(int k) const { return v[k].p; }
   int i(int k) const { return v[k].i; }
   float f(int k) const { return v[k].f; }
+  double d(int k) const { return v[k].d; }
 };
 
 PyObject* result(int err, const char* name) {
@@ -114,6 +118,22 @@ PyObject* ssd_scan(PyObject*, PyObject* const* a, Py_ssize_t n) {
                 name);
 }
 
+// whole_trace(arrival, l_in, l_real, rank, ttft_r, atgt_r, n_active, par,
+//             out_lo, out_f, beats, queue, n, W, B, C, hb, horizon, theta,
+//             gamma, ttft, atgt, aladdin, edf, tagged, stream)
+PyObject* whole_trace(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  const char* name = "whole_trace";
+  const Args in(a, n, "ppppppppppppiiiiddddddiiip", name);
+  if (!in.ok) return nullptr;
+  return result(whole_trace_launch(
+                    in.p(0), in.p(1), in.p(2), in.p(3), in.p(4), in.p(5),
+                    in.p(6), in.p(7), in.p(8), in.p(9), in.p(10), in.p(11),
+                    in.i(12), in.i(13), in.i(14), in.i(15), in.d(16),
+                    in.d(17), in.d(18), in.d(19), in.d(20), in.d(21),
+                    in.i(22), in.i(23), in.i(24), in.p(25)),
+                name);
+}
+
 template <PyObject* (*F)(PyObject*, PyObject* const*, Py_ssize_t)>
 PyCFunction fastcall() {
   return reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(F));
@@ -128,6 +148,9 @@ PyMethodDef methods[] = {
      "Launch kernel B3; raises RuntimeError on a CUDA error."},
     {"ssd_scan", fastcall<ssd_scan>(), METH_FASTCALL,
      "Launch kernel B4; raises RuntimeError on a CUDA error."},
+    {"whole_trace", fastcall<whole_trace>(), METH_FASTCALL,
+     "Launch the whole-trace simulation core; raises RuntimeError on a "
+     "CUDA error."},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef module_def = {PyModuleDef_HEAD_INIT, "_kernels", nullptr, -1,

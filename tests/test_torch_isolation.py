@@ -29,7 +29,10 @@ COPIED = sorted(
     + [f"core/{m}.py" for m in ("request", "slo", "perf_model", "placement",
                                 "rebalance", "scaling", "worker_config",
                                 "distributed_scheduler", "mip")]
-    + ["serving/length_predictor.py"])
+    + ["serving/length_predictor.py"]
+    + [f"serving/{m}.py" for m in ("workload", "lifecycle", "tenants",
+                                   "simulator", "forecast", "disagg",
+                                   "fastsim", "api", "__init__")])
 _IMPORT_RE = re.compile(r"^(\s*)(from|import) repro(?=[.\s])", re.M)
 
 
@@ -59,7 +62,8 @@ def test_port_file_imports_no_jax_or_reference(path):
 def test_importing_the_port_loads_no_jax_or_reference():
     code = ("import sys, repro_torch.serving.cluster, "
             "repro_torch.launch.serve, repro_torch.convert, "
-            "repro_torch.launch.train, repro_torch.examples.train_example\n"
+            "repro_torch.launch.train, repro_torch.examples.train_example, "
+            "repro_torch.serving.api, repro_torch.serving.fastsim_jax\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -105,6 +109,21 @@ def test_entry_points_refuse_cpu_by_default(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_example.main(steps=1, ckpt=str(tmp_path))
     assert not any(tmp_path.iterdir())
+    from repro_torch.core.perf_model import (DecodeModel, KVModel, PerfModel,
+                                             PrefillModel)
+    from repro_torch.core.request import Request
+    from repro_torch.core.worker_config import WorkerSpec
+    from repro_torch.serving import api
+    spec = WorkerSpec(perf=PerfModel(kv=KVModel(h=0.0, j=0.0),
+                                     prefill=PrefillModel(k1=2e-5, c1=8e-3),
+                                     decode=DecodeModel(k2=6e-6, c2=3e-4,
+                                                        c3=9e-3)),
+                      kv_capacity=1e18, max_batch=8, n_accelerators=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.run(api.Scenario(
+            workload=[Request(l_in=64, l_pred=0, l_real=8, arrival=0.1)],
+            fleet=api.FleetSpec([api.PoolSpec(spec, 2)]), slo=SLO(1.0, 1.0),
+            scaling=api.FixedScale(), engine="jax"))
     # asked for explicitly, the CPU works
     assert PagedEngine(arch, params, cfg, device="cpu").device.type == "cpu"
 
