@@ -221,6 +221,7 @@ REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:33",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:70",
     "fastsim_whole_trace": "src/repro/serving/fastsim_jax.py:185",
+    "fastsim_chunk": "src/repro/serving/fastsim_jax.py:608",
 }
 SOURCES = {
     "paged_decode_attention":
@@ -231,6 +232,7 @@ SOURCES = {
     "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
     "fastsim_whole_trace":
         "src/repro_torch/kernels/fastsim/csrc/whole_trace.cu",
+    "fastsim_chunk": "src/repro_torch/kernels/fastsim/csrc/chunk.cu",
 }
 # the port's kernels by a stem of their device function names
 PORT_KERNELS = {"paged_decode_attention": "paged_decode_kernel",
@@ -2267,6 +2269,391 @@ def fastsim_phase(torch, smi):
     return slice_case, launches
 
 
+# The reference's chunked-core cells (benchmarks/bench_cluster_sim.py:
+# run_spot's engine cell, :611-629, and run_feedback's, :718-726, and its
+# policy-space optimize, :699-701), built here from the port's copies with
+# nothing cut: llama2-70b workers (make_worker_spec(..., A100_80G,
+# PAPER_SLOS, mean_context=450.0): live KV), 48 req/s for 150 s.
+CHUNK_RATE, CHUNK_SECONDS = 48.0, 150.0
+CHUNK_COMPARED = 10          # the spot cell's first chunks, kernel vs plain
+PO2_TOL = 0.15               # po2's attainment against the numpy core's
+
+
+class ChunkTimes:
+    """Splits the chunked core's host side while the context is open:
+    seconds in each of its steps per chunk (``boundary``: the fleet's
+    settlement before a chunk; ``pack``; ``up``: the copies to the card;
+    ``kernel``: the launch and its run, CUDA events around it, then a
+    synchronisation; ``down``: the copies back; ``absorb``: unpacking,
+    draining finished rows and the pool's billing replay), the device ms of
+    every launch, and the bytes each launch must move (``_chunk_bytes``)."""
+
+    STEPS = (("boundary", "_PooledSim", "step_prepare"),
+             ("pack", "_PooledSim", "_pack"), ("up", None, "_to_device"),
+             ("kernel", None, "chunk"), ("down", None, "_to_host"),
+             ("absorb", "_PooledSim", "step_absorb"))
+
+    def __init__(self, torch, fj):
+        self.torch, self.fj = torch, fj
+        self.s = {k: 0.0 for k, _, _ in self.STEPS}
+        self.ms, self.nbytes = [], []
+
+    def _wrap(self, key, fn):
+        torch = self.torch
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            if key == "kernel":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kw)
+                end.record()
+                end.synchronize()
+                self.ms.append(start.elapsed_time(end))
+            else:
+                out = fn(*args, **kw)
+            self.s[key] += time.perf_counter() - t0
+            if key == "kernel":
+                self.nbytes.append(_chunk_bytes(args, out))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.saved = []
+        for key, owner, name in self.STEPS:
+            obj = self.fj if owner is None else getattr(self.fj, owner)
+            fn = getattr(obj, name)
+            self.saved.append((obj, name, fn))
+            setattr(obj, name, self._wrap(key, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+
+    def summary(self, wall_s: float) -> dict:
+        n = max(len(self.ms), 1)
+        split = {k: v * 1e3 / n for k, v in self.s.items()}
+        return {"chunks": len(self.ms),
+                "kernel_device_ms_mean": sum(self.ms) / n,
+                "kernel_device_ms_max": max(self.ms, default=0.0),
+                "host_ms_per_chunk": split,
+                "run_wall_ms": wall_s * 1e3,
+                "outside_chunks_ms": wall_s * 1e3 - sum(self.s.values()) * 1e3,
+                "bound_ms_per_chunk": sum(self.nbytes) / n / HBM_BYTES_PER_S
+                * 1e3}
+
+
+def _held_states(torch, got, want, what: str) -> float:
+    """A chunk's advanced state from the kernel against the plain
+    version's: equal, NaN where NaN. Returns the largest absolute
+    difference (0)."""
+    (fg, ig), (fw, iw) = got, want
+    fg, ig = fg.cpu(), ig.cpu()
+    if not torch.equal(ig, iw):
+        raise AssertionError(f"[fastsim chunk] {what}: int64 state differs "
+                             f"at {int((ig != iw).sum())} places")
+    if not torch.equal(fg.isnan(), fw.isnan()):
+        raise AssertionError(f"[fastsim chunk] {what}: NaNs differ")
+    ok = ~fw.isnan()
+    err = float((fg[ok] - fw[ok]).abs().max()) if bool(ok.any()) else 0.0
+    if err != 0.0:
+        raise AssertionError(f"[fastsim chunk] {what}: float64 state "
+                             f"differs by up to {err}")
+    return err
+
+
+def _chunk_bytes(args, out) -> int:
+    """The bytes one chunk launch must move: every candidate's packed state
+    read once and written once, and, for each request it admits to the
+    backlog and each row it places, that request's ten trace and sink
+    values (arrival, lengths, rank, SLO budgets, re-entrant sinks), 8 B
+    each. The rest of the trace is not read in the chunk."""
+    from repro_torch.kernels.fastsim import chunk_layout
+    _nf, _ni, fields = chunk_layout(1, 1, 1)        # the scalars lead
+    ins, outs = args[1].cpu(), out[1].cpu()
+    touched = sum(int((outs[:, fields[k][1]] - ins[:, fields[k][1]]).sum())
+                  for k in ("idx", "seqc"))
+    return 8 * (2 * (args[0].numel() + args[1].numel()) + 10 * touched)
+
+
+def _held_request_bits(want, got, what: str) -> None:
+    key = lambda r: (r.arrival, r.id)  # noqa: E731
+    if len(want) != len(got):
+        raise AssertionError(f"[fastsim chunk] {what}: {len(got)} requests, "
+                             f"want {len(want)}")
+    for a, b in zip(sorted(want, key=key), sorted(got, key=key)):
+        fa = (a.t_first_token, a.t_finish, a.l_out, a.t_decode_spent,
+              a.t_preempted, a.preempt_count)
+        fb = (b.t_first_token, b.t_finish, b.l_out, b.t_decode_spent,
+              b.t_preempted, b.preempt_count)
+        if fa != fb:
+            raise AssertionError(f"[fastsim chunk] {what}: request {a.id}: "
+                                 f"{fb} != {fa}")
+
+
+def chunked_phase(torch, smi):
+    """The chunked core (``kernels/fastsim/csrc/chunk.cu``): (a) the pooled
+    twins of ``repro_torch.serving.chunk_twins``, every chunk through the
+    kernel against the plain version's recorded state and each whole run
+    on the card against the plain run, and the hand-made order-edge chunk;
+    (b) the spot cell's first CHUNK_COMPARED chunks, kernel against plain,
+    timed; then the main path, the launch counter zeroed before and read
+    after: (c) the spot and feedback cells on the card against the numpy
+    core, request by request; (d) optimize(policy_space=...) on both
+    engines; (e) po2 on the spot cell, twice. Returns the kernels-line
+    case and the main path's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.scaling import SpotMixConfig
+    from repro_torch.core.slo import PAPER_SLOS
+    from repro_torch.core.worker_config import (A100_80G, make_worker_spec,
+                                                spot_variant)
+    from repro_torch.kernels.fastsim import chunk, chunk_layout
+    from repro_torch.serving import api, chunk_twins
+    from repro_torch.serving import fastsim_jax as fj
+    from repro_torch.serving import workload as wl
+    from repro_torch.serving.fastsim import run_colocated_vectorized
+    from repro_torch.serving.forecast import (ForecastConfig,
+                                              ForecastPolicy,
+                                              ScaleSimConfig,
+                                              SeasonalNaiveForecaster,
+                                              SpotMarket)
+
+    cuda = torch.device("cuda")
+
+    # (a) the pooled twins (repro_torch.serving.chunk_twins): every chunk
+    # of the plain run replayed through the kernel, then the whole run on
+    # the card against the plain run; and the hand-made chunk that only the
+    # numpy core's summation order of the weighted context places
+    err = 0.0
+    t0 = time.perf_counter()
+    for what, make in chunk_twins.TWINS.items():
+        sc = make()
+        plain_t = wl.clone_trace(sc.workload)
+        calls = chunk_twins.record_chunks(lambda: fj.run_colocated_jax(
+            dataclasses.replace(sc, workload=plain_t), device="cpu"))
+        for k, (args, kw, want, _s) in enumerate(calls):
+            got = chunk(*(a.to(cuda) for a in args), **kw)
+            err = max(err, _held_states(torch, got, want,
+                                        f"{what}, chunk {k}"))
+        card_t = wl.clone_trace(sc.workload)
+        rep = fj.run_colocated_jax(dataclasses.replace(sc, workload=card_t))
+        _held_request_bits(plain_t, card_t, what)
+        log(f"[fastsim chunk twin] {what}: {len(card_t)} requests, "
+            f"{len(calls)} chunks held, beats {rep.beats}, attainment "
+            f"{rep.attainment}, preempted workers {rep.preempted_workers}, "
+            f"requeued {rep.requeued}")
+    args, kw = chunk_twins.order_edge_chunk()
+    want = chunk(*args, **kw)
+    got = chunk(*(a.to(cuda) for a in args), **kw)
+    err = max(err, _held_states(torch, got, want, "order edge"))
+    _nf, _ni, fields = chunk_layout(kw["W"], kw["B"], kw["Q"])
+    if int(want[1][0, fields["qlen"][1]]) != 0:
+        raise AssertionError("[fastsim chunk] order edge: the request was "
+                             "not placed")
+    log(f"[fastsim chunk] {len(chunk_twins.TWINS)} twins and the order "
+        f"edge: every chunk and every run equal on the card and the plain "
+        f"version; {time.perf_counter() - t0:.1f}s wall")
+
+    # the cells, from the port's copies
+    slo = PAPER_SLOS["llama2-70b"]
+    spec = make_worker_spec(get_arch("llama2-70b"), A100_80G, slo,
+                            mean_context=450.0)
+    if spec.perf.kv.h == 0.0 and spec.perf.kv.j == 0.0:
+        raise AssertionError("[fastsim chunk] the cells' spec has inert KV")
+    hazard, discount = 1.0 / 600.0, 0.35
+    spot_spec = spot_variant(spec, price=discount, preempt_hazard=hazard)
+    lengths = dict(in_mu=5.0, in_sigma=1.1, out_mu=5.3, out_sigma=0.9)
+
+    def spot_cell(engine, policy="aladdin"):
+        cfg = wl.WorkloadConfig(mean_rate=CHUNK_RATE,
+                                duration=CHUNK_SECONDS, seed=21, **lengths)
+        scfg = ScaleSimConfig(interval=5.0, provision_delay=10.0,
+                              cooldown=60.0,
+                              initial_workers=int(CHUNK_RATE))
+        fc = SeasonalNaiveForecaster(ForecastConfig(period=300.0,
+                                                    bin_width=5.0))
+        mix = SpotMixConfig(discount=discount, hazard=hazard,
+                            max_spot_frac=0.7)
+        return api.Scenario(
+            workload=lambda: wl.diurnal_trace(cfg, amplitude=0.6,
+                                              period=300.0),
+            fleet=api.FleetSpec([api.PoolSpec(spec, scfg.initial_workers)]),
+            slo=slo, topology=api.Colocated(policy=policy),
+            scaling=api.PolicyScale(ForecastPolicy(scfg, fc, spot_mix=mix),
+                                    scfg),
+            market=SpotMarket(spot_spec, wl.preemption_trace(
+                CHUNK_SECONDS, event_rate=hazard / 0.25, frac=0.25,
+                seed=13)),
+            engine=engine)
+
+    def feedback_cell(engine, rate=CHUNK_RATE, duration=CHUNK_SECONDS):
+        cfg = wl.WorkloadConfig(mean_rate=rate, duration=duration, seed=33,
+                                **lengths)
+        return api.Scenario(
+            workload=lambda: wl.drifting_diurnal_trace(
+                cfg, amplitude=0.6, period=150.0, drift=1.0),
+            fleet=api.FleetSpec([api.PoolSpec(spec, 5)]), slo=slo,
+            topology=api.Colocated(),
+            scaling=api.FeedbackScale(
+                base=api.Forecast(period=150.0, min_workers=2),
+                min_gain=0.85, max_gain=1.3, boost=1.2, decay=0.02,
+                window=45.0),
+            engine=engine)
+
+    # (b) the spot cell's first chunks: the plain version's, then the
+    # kernel on each recorded state, timed with CUDA events
+    sim = fj._PooledSim(spot_cell("jax"), device="cpu")
+
+    def first_chunks():
+        for _ in range(CHUNK_COMPARED):
+            K = sim.step_prepare()
+            (f, i), = fj._run_chunks([sim], [K])
+            sim.step_absorb(f, i)
+
+    calls = chunk_twins.record_chunks(first_chunks)
+    dev_ms, nbytes, tokens = [], [], 0
+    for k, (args, kw, want, _s) in enumerate(calls):
+        dargs = [a.to(cuda) for a in args]
+        chunk(*dargs, **kw)                             # warm
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = chunk(*dargs, **kw)
+        end.record()
+        end.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+        err = max(err, _held_states(torch, got, want, f"spot cell chunk {k}"))
+        nbytes.append(_chunk_bytes(args, want))
+        # tokens decoded in the chunk: l_out summed over its rows after,
+        # less what the rows held before (a new row's l_out starts at its
+        # re-entrant sink's)
+        _nf, _ni, fields = chunk_layout(kw["W"], kw["B"], kw["Q"])
+        o_lo, o_rid, o_sst = (fields[x][1] for x in ("rlo", "rid", "sst"))
+        wb = kw["W"] * kw["B"]
+        lo_in = args[1][0, o_lo:o_lo + wb]
+        lo_out = want[1][0, o_lo:o_lo + wb]
+        occ_in = args[1][0, o_sst:o_sst + wb] > 0
+        occ_out = want[1][0, o_sst:o_sst + wb] > 0
+        same = occ_in & (args[1][0, o_rid:o_rid + wb]
+                         == want[1][0, o_rid:o_rid + wb])
+        tokens += int(lo_out[occ_out].sum() - lo_in[same].sum()
+                      - args[8][0][want[1][0, o_rid:o_rid + wb][
+                          occ_out & ~same]].sum())
+    plain_ms = sum(c[3] for c in calls) / len(calls) * 1e3
+    kern_ms = sum(dev_ms) / len(dev_ms)
+    # operations: at least the 4 fp64 operations of a decode iteration for
+    # every max batch of generated tokens
+    b_ms, b_by = bound(sum(nbytes) / len(nbytes),
+                       {"fp64": 4.0 * tokens / len(calls)
+                        / int(spec.max_batch)})
+    W, B, Q = calls[0][1]["W"], calls[0][1]["B"], calls[0][1]["Q"]
+    case = {"kernel": "fastsim_chunk",
+            "case": f"spot cell, first {len(calls)} chunks, W {W} B {B}",
+            "dtype": "fp64", "max_abs_err": err, "kernel_ms": kern_ms,
+            "device_ms": kern_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by}
+    log(json.dumps(case))
+    log("[fastsim chunk first chunks] " + json.dumps({
+        "W_B_Q": [[c[1]["W"], c[1]["B"], c[1]["Q"]] for c in calls],
+        "device_ms": dev_ms, "plain_ms": [c[3] * 1e3 for c in calls],
+        "bytes": nbytes, "tokens_decoded": tokens, "card": smi}))
+
+    # the main path: the cells on the card, the launch counter zeroed just
+    # before and read just after
+    chunk.launches = 0
+
+    def cell(make):
+        tr = make("vectorized").materialize()
+        vec_t, card_t = wl.clone_trace(tr), wl.clone_trace(tr)
+        t0 = time.perf_counter()
+        vec = run_colocated_vectorized(dataclasses.replace(
+            make("vectorized"), workload=vec_t))
+        vec_wall = time.perf_counter() - t0
+        with ChunkTimes(torch, fj) as times:
+            t0 = time.perf_counter()
+            rep = api.run(dataclasses.replace(make("jax"), workload=card_t))
+            wall = time.perf_counter() - t0
+        return vec, vec_t, rep, card_t, vec_wall, times.summary(wall)
+
+    for what, make in (("spot", spot_cell), ("feedback", feedback_cell)):
+        vec, vec_t, rep, card_t, vec_wall, split = cell(make)
+        _held_request_bits(vec_t, card_t, f"{what} cell")
+        for k in ("beats", "gpu_seconds", "spot_gpu_seconds", "epochs",
+                  "preempted_workers", "drained_ok", "requeued",
+                  "peak_workers"):
+            if getattr(rep, k) != getattr(vec, k):
+                raise AssertionError(f"[fastsim chunk] {what} cell: {k} "
+                                     f"{getattr(rep, k)} != "
+                                     f"{getattr(vec, k)}")
+        _held_rows(vec.row(), rep.row(), f"{what} cell")
+        log(f"[fastsim chunk {what}] " + json.dumps({
+            "requests": len(card_t), "finished": rep.finished,
+            "beats": rep.beats, "epochs": len(rep.epochs["serve"]),
+            "peak_workers": rep.peak_workers,
+            "gpu_seconds": rep.gpu_seconds, "attainment": rep.attainment,
+            "preempted_workers": rep.preempted_workers,
+            "requeued": rep.requeued, "numpy_core_wall_ms": vec_wall * 1e3, **split, "card": smi}))
+
+    # (d) the policy-space search on both engines
+    space = {"headroom": (0.9, 1.0, 1.1), "theta": (0.8, 0.9)}
+    plans = {}
+    for engine in ("jax", "vectorized"):
+        with ChunkTimes(torch, fj) as times:
+            t0 = time.perf_counter()
+            plans[engine] = api.optimize(
+                feedback_cell(engine, rate=6.0, duration=900.0),
+                attain_target=0.99, policy_space=space)
+            wall = time.perf_counter() - t0
+        p = plans[engine]
+        log("[fastsim chunk optimize] " + json.dumps({
+            "engine": engine, "params": p.params, "evals": p.evals,
+            "n_workers": p.n_workers, "gpu_seconds": p.cost,
+            "attainment": p.report.attainment, "wall_s": wall,
+            **({"launches": len(times.ms),
+                "kernel_device_ms_mean": times.summary(wall)[
+                    "kernel_device_ms_mean"]} if engine == "jax" else {}),
+            "card": smi}))
+    jp, vp = plans["jax"], plans["vectorized"]
+    if (jp.params, jp.n_workers, jp.cost, jp.evals) \
+            != (vp.params, vp.n_workers, vp.cost, vp.evals):
+        raise AssertionError(f"[fastsim chunk] optimize: jax {jp.params} "
+                             f"{jp.cost}, vectorized {vp.params} {vp.cost}")
+    _held_rows(vp.report.row(), jp.report.row(), "optimize")
+    replay = api.run(jp.scenario)
+    if replay.row() != jp.report.row():
+        raise AssertionError("[fastsim chunk] optimize: run(plan.scenario) "
+                             f"{replay.row()} != {jp.report.row()}")
+
+    # (e) po2: its own generator, deterministic; the numpy core's
+    # attainment within PO2_TOL
+    rows = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        rows.append(api.run(spot_cell("jax", "po2")).row())
+        wall = time.perf_counter() - t0
+    if rows[0] != rows[1]:
+        raise AssertionError("[fastsim chunk] po2: two runs differ")
+    vec = run_colocated_vectorized(spot_cell("vectorized", "po2"))
+    if abs(rows[0]["attainment"] - vec.attainment) > PO2_TOL:
+        raise AssertionError(f"[fastsim chunk] po2: attainment "
+                             f"{rows[0]['attainment']} vs the numpy core's "
+                             f"{vec.attainment}")
+    log("[fastsim chunk po2] " + json.dumps({
+        "attainment": rows[0]["attainment"],
+        "numpy_core_attainment": vec.attainment,
+        "finished": rows[0]["finished"], "run_wall_ms": wall * 1e3,
+        "card": smi}))
+    launches = chunk.launches
+    if launches < 1:
+        raise AssertionError("[fastsim chunk] the kernel never ran on the "
+                             "main path")
+    return case, launches
+
+
 def grad_refusals(torch):
     """B1 and B4 have no backward: on CUDA each raises when an input
     requires grad, before any launch."""
@@ -2421,6 +2808,10 @@ def main() -> int:
     fastsim_case, fastsim_launches = fastsim_phase(torch, smi)
     log(f"[fastsim] Scenario phase: {time.perf_counter() - t0:.1f}s wall; "
         f"card {smi}")
+    t0 = time.perf_counter()
+    chunk_case, chunk_launches = chunked_phase(torch, smi)
+    log(f"[fastsim chunk] chunked-core phase: "
+        f"{time.perf_counter() - t0:.1f}s wall; card {smi}")
 
     representative = {"rmsnorm": "1024x4096",
                       "flash_attention": "B=1 Sq=1024 Skv=1024 H=32/32 D=128",
@@ -2443,16 +2834,16 @@ def main() -> int:
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"], "at": rep["case"],
             "dtype": rep["dtype"]})
-    c = fastsim_case
-    kernels.append({
-        "name": "fastsim_whole_trace", "route": "cuda",
-        "source": SOURCES["fastsim_whole_trace"],
-        "replaces": REPLACES["fastsim_whole_trace"],
-        "launches": fastsim_launches, "max_abs_err": c["max_abs_err"],
-        "ms": c["kernel_ms"], "device_ms": c["device_ms"],
-        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-        "bound_by": c["bound_by"], "library_ms": None, "at": c["case"],
-        "dtype": c["dtype"]})
+    for name, c, n in (("fastsim_whole_trace", fastsim_case,
+                        fastsim_launches),
+                       ("fastsim_chunk", chunk_case, chunk_launches)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": n,
+            "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"],
+            "device_ms": c["device_ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": None, "at": c["case"], "dtype": c["dtype"]})
     if not all(math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("kernel time not measured")
     log(smi)                       # nvidia-smi name, power.limit

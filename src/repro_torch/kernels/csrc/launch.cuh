@@ -46,4 +46,19 @@ int whole_trace_launch(const void* arrival, const void* l_in,
                        double gamma, double ttft, double atgt, int aladdin,
                        int edf, int tagged, void* stream);
 
+// The Scenario API's chunked simulation core (fastsim/csrc): one CTA per
+// candidate; `fin`/`iin` are each candidate's packed state (float64 and
+// int64 buffers, ops.py's chunk_layout), `fout`/`iout` the advanced state;
+// `s_lo` (C, n) and `s_f` (C, 3, n) the re-entrant sinks; policy 0 aladdin,
+// 1 jsq, 2 po2
+int fastsim_chunk_launch(const void* arrival, const void* l_in,
+                         const void* l_real, const void* rank_r,
+                         const void* ttft_r, const void* atgt_r,
+                         const void* s_lo, const void* s_f, const void* fin,
+                         const void* iin, void* fout, void* iout,
+                         void* scratch, int n, int W, int B, int Q, int C,
+                         double hb, double gamma,
+                         double ttft, double atgt, int policy, int edf,
+                         int tagged, void* stream);
+
 }  // extern "C"

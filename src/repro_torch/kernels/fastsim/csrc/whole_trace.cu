@@ -20,9 +20,10 @@
 // Design:
 // - one CTA per candidate fleet size (the reference's vmap), all candidates
 //   in parallel on the SMs; `n_active[c]` workers of the W lanes are alive;
-// - lane state (W x B slots: request id, l_in, l_real, l_out, t_decode_spent,
-//   first-token and finish times, active/started flags) lives in dynamic
-//   shared memory, above 48 KB when W x B is large (W 40 x B 32 is 58 KB),
+// - lane state (W x B slots: request id, l_in, l_real, l_out, placement
+//   sequence, t_decode_spent, first-token and finish times, active/started
+//   flags) and each warp's B-entry scratch for ordered sums live in dynamic
+//   shared memory, above 48 KB when W x B is large (W 40 x B 32 is 66 KB),
 //   hence cudaFuncSetAttribute; trace-sized arrays (arrival, lengths, ranks,
 //   SLO budgets, the queue, the outputs) stay in global memory;
 // - warp 0 admits arrivals, keeps the backlog in rank order (EDF), and runs
@@ -38,93 +39,26 @@
 // Numerics are those of the numpy core, which is bit for bit equal to the
 // reference engine: every add and multiply through __dadd_rn/__dmul_rn (nvcc
 // never contracts those into a fused multiply-add), sequential
-// left-associated sums of floats, `k2*C + c2*b + c3` as
-// ((k2*C) + (c2*b)) + c3, a decode segment closed at every beat end (also at
-// those the event skip covers), and the capacity norm through CPython's
-// math.hypot algorithm (`py_hypot`), so best-fit ranks workers as the numpy
-// core does. Integer sums (batch, context, new tokens) are exact in any
-// order.
+// left-associated sums of floats in the numpy core's order (a worker's
+// weighted context over its members in placement order), `k2*C + c2*b + c3`
+// as ((k2*C) + (c2*b)) + c3, a decode segment closed at every beat end (also
+// at those the event skip covers), and the capacity norm through CPython's
+// math.hypot algorithm (`py_hypot`, fp64.cuh), so best-fit ranks workers as
+// the numpy core does. Integer sums (batch, context, new tokens) are exact
+// in any order.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "fp64.cuh"
 #include "launch.cuh"
 
 namespace {
 
+using namespace repro::fastsim;
+
 constexpr int kMaxWarps = 16;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSmem = 232448;  // what a CTA may use on Hopper
-
-__device__ __forceinline__ double add(double a, double b) {
-  return __dadd_rn(a, b);
-}
-__device__ __forceinline__ double sub(double a, double b) {
-  return __dsub_rn(a, b);
-}
-__device__ __forceinline__ double mul(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ double dvd(double a, double b) {
-  return __ddiv_rn(a, b);
-}
-// Python's min(a, b) and max(a, 0.0) on numbers that are never NaN
-__device__ __forceinline__ double pmin(double a, double b) {
-  return b < a ? b : a;
-}
-__device__ __forceinline__ double max0(double a) { return 0.0 > a ? 0.0 : a; }
-
-// CPython's math.hypot for two finite non-negative numbers (vector_norm in
-// Modules/mathmodule.c): scale by a power of two, add the exact squares as
-// double-length values into a compensated sum, take the square root and
-// apply one correction. The fused multiply-adds here give exact low parts
-// of products, which is what CPython's double-length multiply computes.
-__device__ double py_hypot(double a, double b) {
-  const double mx = a < b ? b : a;
-  if (mx == 0.0) return mx;
-  int e;
-  frexp(mx, &e);
-  const double scale = ldexp(1.0, -e);
-  double csum = 1.0, f1 = 0.0, f2 = 0.0;
-  const double xs[2] = {mul(a, scale), mul(b, scale)};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const double ph = mul(xs[i], xs[i]);
-    const double pl = __fma_rn(xs[i], xs[i], -ph);
-    const double hi = add(csum, ph);
-    f2 = add(f2, add(sub(csum, hi), ph));
-    csum = hi;
-    f1 = add(f1, pl);
-  }
-  double h = __dsqrt_rn(add(sub(csum, 1.0), add(f1, f2)));
-  const double ph = mul(-h, h);
-  const double pl = __fma_rn(-h, h, -ph);
-  const double hi = add(csum, ph);
-  f2 = add(f2, add(sub(csum, hi), ph));
-  csum = hi;
-  f1 = add(f1, pl);
-  h = add(h, dvd(add(sub(csum, 1.0), add(f1, f2)), mul(2.0, h)));
-  return dvd(h, scale);
-}
-
-__device__ __forceinline__ long long warp_sum(long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-__device__ __forceinline__ long long warp_min(long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const long long x = __shfl_xor_sync(kFull, v, o);
-    v = x < v ? x : v;
-  }
-  return v;
-}
-__device__ __forceinline__ double warp_min(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = pmin(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
 
 struct Params {
   const double* arrival;
@@ -148,10 +82,11 @@ struct Params {
 // warp. Doubles first, then 8-byte, 4-byte and 1-byte arrays.
 struct Lanes {
   double *tds, *tf1, *tfn;                                   // slots
+  double* osum;                                              // warps x B
   double *t, *k1, *c1, *k2, *c2, *c3, *mbn, *cmn;            // lanes
   double *wctx, *dbud, *dbud_t, *amin, *tmin;                // lanes
   long long* newsum;                                         // lanes
-  int *mem, *li, *lr, *lo;                                   // slots
+  int *mem, *li, *lr, *lo, *seq;                             // slots
   int *maxb, *cnt;                                           // lanes
   int* jfin;                                                 // warps
   unsigned char *act, *sta;                                  // slots
@@ -159,8 +94,9 @@ struct Lanes {
 
   __host__ __device__ static size_t bytes(int W, int B, int nw) {
     const size_t wb = static_cast<size_t>(W) * B;
-    return 8 * (3 * wb + 14 * static_cast<size_t>(W)) +
-           4 * (4 * wb + 2 * static_cast<size_t>(W) + nw) + 2 * wb + nw;
+    return 8 * (3 * wb + static_cast<size_t>(nw) * B +
+                14 * static_cast<size_t>(W)) +
+           4 * (5 * wb + 2 * static_cast<size_t>(W) + nw) + 2 * wb + nw;
   }
 
   __device__ Lanes(unsigned char* base, int W, int B, int nw) {
@@ -168,13 +104,16 @@ struct Lanes {
     double* d = reinterpret_cast<double*>(base);
     tds = d; tf1 = d + wb; tfn = d + 2 * wb;
     d += 3 * wb;
+    osum = d;
+    d += static_cast<size_t>(nw) * B;
     double** lane_d[] = {&t, &k1, &c1, &k2, &c2, &c3, &mbn, &cmn,
                          &wctx, &dbud, &dbud_t, &amin, &tmin};
     for (double** p : lane_d) { *p = d; d += W; }
     newsum = reinterpret_cast<long long*>(d);
     int* i = reinterpret_cast<int*>(newsum + W);
     mem = i; li = i + wb; lr = i + 2 * wb; lo = i + 3 * wb;
-    i += 4 * wb;
+    seq = i + 4 * wb;
+    i += 5 * wb;
     maxb = i; cnt = i + W; jfin = i + 2 * W;
     unsigned char* u = reinterpret_cast<unsigned char*>(i + 2 * W + nw);
     act = u; sta = u + wb; busy = u + 2 * wb;
@@ -182,11 +121,12 @@ struct Lanes {
 };
 
 // Lane w's aggregates for the next placement pass (warp-wide): batch, new
-// tokens, weighted context (summed in slot order by lane 0), constraint
-// (d)'s budgets over the ongoing members and, for tagged traces, the
-// strictest member budgets.
+// tokens, weighted context (in placement order, summed anew when `recount`:
+// only a finish changes it other than by the placements' own adds),
+// constraint (d)'s budgets over the ongoing members and, for tagged traces,
+// the strictest member budgets.
 __device__ void lane_aggregates(const Params& p, Lanes& L, int w, int lane,
-                                bool tag_a) {
+                                bool tag_a, bool recount, double* scratch) {
   const int B = p.B;
   long long cnt = 0, newsum = 0;
   double slack = CUDART_INF, slack_t = CUDART_INF;
@@ -216,14 +156,25 @@ __device__ void lane_aggregates(const Params& p, Lanes& L, int w, int lane,
   slack_t = warp_min(slack_t);
   amin = warp_min(amin);
   tmin = warp_min(tmin);
+  // the weighted context in the numpy core's order: its ongoing members
+  // in join order, then its new batch, i.e. every member in placement
+  // order (a float sum, so the order shows in the last ulp). Without a
+  // finish the members are those of the last sum plus the placements since,
+  // whose adds extended it in that order.
+  const int o = w * B;
+  const double wctx =
+      recount ? ordered_sum(
+                    B, lane, scratch,
+                    [&](int s) -> long long {
+                      return L.act[o + s] ? L.seq[o + s] : -1;
+                    },
+                    [&](int s) {
+                      return add(static_cast<double>(L.li[o + s]),
+                                 mul(p.gamma,
+                                     static_cast<double>(L.lr[o + s])));
+                    })
+              : L.wctx[w];
   if (lane == 0) {
-    double wctx = 0.0;
-    for (int s = 0; s < B; ++s) {
-      const int k = w * B + s;
-      if (L.act[k])
-        wctx = add(wctx, add(static_cast<double>(L.li[k]),
-                             mul(p.gamma, static_cast<double>(L.lr[k]))));
-    }
     L.wctx[w] = wctx;
     L.cnt[w] = static_cast<int>(cnt);
     L.newsum[w] = newsum;
@@ -235,9 +186,10 @@ __device__ void lane_aggregates(const Params& p, Lanes& L, int w, int lane,
 }
 
 // The placement pass over the backlog q[0, qlen) (warp 0). Returns the
-// number still queued; they keep their order at the head of q.
+// number still queued; they keep their order at the head of q. `seqc`
+// numbers the placements.
 __device__ int place_pass(const Params& p, Lanes& L, int* q, int qlen,
-                          long long na, int lane, bool tag_a) {
+                          long long na, int lane, bool tag_a, int& seqc) {
   const int W = p.W, B = p.B;
   int keep = 0;
   for (int i = 0; i < qlen; ++i) {
@@ -313,6 +265,7 @@ __device__ int place_pass(const Params& p, Lanes& L, int* q, int qlen,
     if (lane == 0) {
       const int k = w * B + slot;
       L.mem[k] = rid;
+      L.seq[k] = seqc;
       L.act[k] = 1;
       L.sta[k] = 0;
       L.li[k] = static_cast<int>(liv);
@@ -329,6 +282,7 @@ __device__ int place_pass(const Params& p, Lanes& L, int* q, int qlen,
         L.tmin[w] = pmin(L.tmin[w], tr);
       }
     }
+    ++seqc;
     __syncwarp();
   }
   return keep;
@@ -460,6 +414,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const long long na = p.n_active[c];
   const bool tag_a = p.tagged && p.aladdin;
   Lanes L(smem, W, B, nw);
+  int seqc = 0;  // placements so far (warp 0's)
 
   for (int i = tid; i < n; i += blockDim.x) {
     out_lo[i] = 0;
@@ -469,7 +424,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
   for (int k = tid; k < W * B; k += blockDim.x) {
     L.mem[k] = -1;
-    L.li[k] = L.lr[k] = L.lo[k] = 0;
+    L.li[k] = L.lr[k] = L.lo[k] = L.seq[k] = 0;
     L.tds[k] = 0.0;
     L.tf1[k] = L.tfn[k] = CUDART_NAN;
     L.act[k] = L.sta[k] = 0;
@@ -491,7 +446,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     s_beats = 0;
   }
   __syncthreads();
-  for (int w = warp; w < W; w += nw) lane_aggregates(p, L, w, lane, tag_a);
+  double* osum = L.osum + static_cast<size_t>(warp) * B;
+  for (int w = warp; w < W; w += nw)
+    lane_aggregates(p, L, w, lane, tag_a, true, osum);
   __syncthreads();
 
   for (;;) {
@@ -517,7 +474,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       idx = __shfl_sync(kFull, idx, 0);
       qlen = __shfl_sync(kFull, qlen, 0);
       __syncwarp();
-      qlen = place_pass(p, L, q, qlen, na, lane, tag_a);
+      qlen = place_pass(p, L, q, qlen, na, lane, tag_a, seqc);
       if (lane == 0) {
         // event skip: with an empty queue, step the beat clock with the
         // same sequential adds up to the next arrival
@@ -544,7 +501,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       const int j = advance_lane(p, L, w, lane, t, k_steps, t_next, out_lo,
                                  out_tds, out_tf1, out_tfn);
       jf = j > jf ? j : jf;
-      lane_aggregates(p, L, w, lane, tag_a);
+      lane_aggregates(p, L, w, lane, tag_a, j > 0, osum);
       __syncwarp();
       busy = busy || L.cnt[w] > 0;
     }

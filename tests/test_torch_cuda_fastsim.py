@@ -1,4 +1,4 @@
-"""The Scenario API's compiled whole-trace core on the card.
+"""The Scenario API's compiled cores on the card.
 
 The kernel (``kernels/fastsim/csrc/whole_trace.cu``) is held against its
 plain version on the same inputs over the traces of
@@ -11,6 +11,18 @@ shared memory. Integers are held exactly, floats within ``rel=1e-12``
 bit for bit). Then ``run_candidate_batch`` on the card against single
 runs, and ``optimize(engine="jax")`` against ``optimize(engine=
 "vectorized")``.
+
+The chunked core (``kernels/fastsim/csrc/chunk.cu``) is held against its
+plain version chunk by chunk: each pooled twin of
+``repro_torch.serving.chunk_twins`` (live KV with preemption churn,
+policy-scaled fleets, a spot market with notice, the KV-crush chaos cell,
+po2, two tenants, gamma 0.3) runs on the CPU while every chunk's packed
+state is recorded, and the kernel runs each recorded state; the advanced
+states must agree exactly, and so must a hand-made chunk that only the
+numpy core's summation order of the weighted context places. Then whole
+runs on the card against the numpy core
+(request by request, beats, billed GPU-seconds), and
+``run_policy_candidate_batch``'s lockstep launches against single runs.
 
 These tests need an NVIDIA card and nvcc (the kernels are built at first
 use); without a card they skip. On the GPU machine:
@@ -30,9 +42,9 @@ from repro_torch.core.request import Request  # noqa: E402
 from repro_torch.core.slo import PAPER_SLOS, SLO  # noqa: E402
 from repro_torch.core.worker_config import (A100_80G,  # noqa: E402
                                             WorkerSpec, make_worker_spec)
-from repro_torch.kernels.fastsim import whole_trace  # noqa: E402
-from repro_torch.serving import api, fastsim_jax  # noqa: E402
-from repro_torch.serving.tenants import materialize_tenants  # noqa: E402
+from repro_torch.kernels.fastsim import (chunk, chunk_layout,  # noqa: E402
+                                         whole_trace)
+from repro_torch.serving import api, chunk_twins, fastsim_jax  # noqa: E402
 from repro_torch.serving.workload import (WorkloadConfig,  # noqa: E402
                                           clone_trace, diurnal_trace,
                                           generate_trace)
@@ -68,22 +80,6 @@ def _grid_trace():
     return generate_trace(WorkloadConfig(
         mean_rate=3.0, duration=20.0, seed=11, tail_frac=0.3,
         in_mu=4.6, out_mu=4.4, out_sigma=1.0))
-
-
-def _two_tenants():
-    chat = api.TenantSpec(
-        name="chat",
-        workload=lambda: generate_trace(WorkloadConfig(
-            mean_rate=4.0, duration=20.0, seed=17, tail_frac=0.2,
-            in_mu=4.6, out_mu=4.2, out_sigma=1.0)),
-        slo=SLO(ttft=0.6, atgt=0.060), priority=1, tier="interactive")
-    ev = api.TenantSpec(
-        name="eval",
-        workload=lambda: generate_trace(WorkloadConfig(
-            mean_rate=4.0, duration=20.0, seed=23, tail_frac=0.3,
-            in_mu=5.0, out_mu=4.8, out_sigma=1.1)),
-        slo=SLO(ttft=5.0, atgt=0.200), priority=0, tier="batch")
-    return [chat, ev], materialize_tenants([chat, ev])
 
 
 def _diurnal(duration, seed=5):
@@ -134,9 +130,9 @@ CASES = {
         slo=SLO(1.0, 0.1)), [2, 4, 6]),
     "tenants-edf-aladdin": lambda: (lambda ts: (_scenario(
         ts[1], _jax_spec(), 1, "aladdin", tenants=ts[0]), 1))(
-            _two_tenants()),
+            chunk_twins.two_tenants()),
     "tenants-edf-jsq": lambda: (lambda ts: (_scenario(
-        ts[1], _jax_spec(), 1, "jsq", tenants=ts[0]), 1))(_two_tenants()),
+        ts[1], _jax_spec(), 1, "jsq", tenants=ts[0]), 1))(chunk_twins.two_tenants()),
     "llama70b-hb20ms": lambda: (_scenario(
         _diurnal(86.4), _llama70b_spec(), 3, "aladdin", hb=0.02,
         slo=PAPER_SLOS["llama2-70b"]), 3),
@@ -201,3 +197,77 @@ def test_optimize_on_the_card_matches_the_numpy_core(card):
     assert (jx.n_workers, jx.cost) == (vec.n_workers, vec.cost)
     assert jx.report.attainment == vec.report.attainment
     assert jx.report.finished == vec.report.finished
+
+
+# ---- the chunked core --------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", sorted(chunk_twins.TWINS))
+def test_chunk_kernel_matches_plain_version(card, case):
+    calls = chunk_twins.twin_chunks(case)
+    assert len(calls) >= 1
+    for args, kw, (fw, iw), _ in calls:
+        before = chunk.launches
+        fg, ig = chunk(*(a.to(card) for a in args), **kw)
+        torch.cuda.synchronize()
+        assert chunk.launches == before + 1
+        assert torch.equal(ig.cpu(), iw)
+        torch.testing.assert_close(fg.cpu(), fw, rtol=0.0, atol=0.0,
+                                   equal_nan=True)
+
+
+def test_chunk_kernel_sums_weighted_context_in_join_order(card):
+    args, kw = chunk_twins.order_edge_chunk()
+    fw, iw = chunk(*args, **kw)
+    fg, ig = chunk(*(a.to(card) for a in args), **kw)
+    assert torch.equal(ig.cpu(), iw)
+    torch.testing.assert_close(fg.cpu(), fw, rtol=0.0, atol=0.0,
+                               equal_nan=True)
+    _, _, fields = chunk_layout(kw["W"], kw["B"], kw["Q"])
+    assert int(ig[0, fields["qlen"][1]]) == 0       # placed
+
+
+def _held_bitwise(want, got):
+    key = lambda r: (r.arrival, r.id)  # noqa: E731
+    for a, b in zip(sorted(want, key=key), sorted(got, key=key)):
+        assert (a.t_first_token, a.t_finish, a.l_out, a.t_decode_spent) \
+            == (b.t_first_token, b.t_finish, b.l_out, b.t_decode_spent)
+
+
+@pytest.mark.parametrize("case", ["chaos", "crush-aladdin-gamma-0.3",
+                                  "feedback", "spot-notice",
+                                  "tenants-crush-aladdin"])
+def test_chunked_run_matches_the_numpy_core(card, case):
+    sc = chunk_twins.TWINS[case]()
+    jx_t, vec_t = clone_trace(sc.workload), clone_trace(sc.workload)
+    before = chunk.launches
+    jx = api.run(dataclasses.replace(sc, workload=jx_t))
+    assert chunk.launches > before
+    vec = api.run(dataclasses.replace(sc, workload=vec_t,
+                                      engine="vectorized"))
+    _held_bitwise(vec_t, jx_t)
+    assert (jx.beats, jx.gpu_seconds, jx.preempted_workers,
+            jx.drained_ok, jx.requeued) == (vec.beats, vec.gpu_seconds,
+                                            vec.preempted_workers,
+                                            vec.drained_ok, vec.requeued)
+
+
+def test_policy_candidate_batch_on_the_card(card):
+    trace = chunk_twins.trace(21, 3.0, 30.0)
+
+    def mk(theta):
+        sc = chunk_twins.scenario(clone_trace(trace), api.Reactive(
+            interval=5.0, min_workers=2), n=3)
+        return dataclasses.replace(
+            sc, topology=dataclasses.replace(sc.topology, theta=theta))
+
+    thetas = (0.7, 0.85, 1.0)
+    before = chunk.launches
+    batch = fastsim_jax.run_policy_candidate_batch([mk(t) for t in thetas])
+    rounds = chunk.launches - before
+    singles = [fastsim_jax.run_colocated_jax(mk(t)) for t in thetas]
+    # one launch a round for all three: no more than the singles' launches
+    assert 0 < rounds <= chunk.launches - before - rounds
+    for rep, single in zip(batch, singles):
+        assert rep.row() == single.row()
+        assert rep.beats == single.beats

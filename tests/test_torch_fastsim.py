@@ -10,7 +10,10 @@ grid's: integers exact, per-request floats ``rel=1e-12``, report floats
 ``rel=1e-9``. Against the numpy core the per-request outcome is also held
 bit for bit, and so is the beat count; a report's mean may differ in the
 last ulp, because it averages over the finish order and requests that
-finish at one instant may be listed in another order."""
+finish at one instant may be listed in another order. Scenarios outside
+the whole-trace envelope run on the chunked core
+(``tests/test_torch_fastsim_chunked.py``); four of them are held here
+through both entry points of the compiled core."""
 import dataclasses
 import math
 import random
@@ -47,7 +50,6 @@ from repro_torch.serving.workload import (PreemptionEvent,  # noqa: E402
                                           generate_trace)
 
 SLO_GRID = SLO(ttft=2.0, atgt=0.2)
-PART2 = "A12 part 2"
 
 
 def _jax_spec() -> WorkerSpec:
@@ -73,11 +75,11 @@ def _grid_trace():
         in_mu=4.6, out_mu=4.4, out_sigma=1.0))
 
 
-def _scenario(trace, pools, policy, engine, **kw):
+def _scenario(trace, pools, policy, engine, gamma=0.5, **kw):
     return api.Scenario(
         workload=trace, fleet=api.FleetSpec(pools), slo=SLO_GRID,
-        topology=api.Colocated(policy=policy), scaling=api.FixedScale(),
-        seed=0, engine=engine, **kw)
+        topology=api.Colocated(policy=policy, gamma=gamma),
+        scaling=api.FixedScale(), seed=0, engine=engine, **kw)
 
 
 def _ref_vectorized(scenario):
@@ -163,6 +165,22 @@ def test_jax_engine_matches_reference(policy):
     assert jx.p99_atgt == pytest.approx(ref.p99_atgt, rel=1e-9)
     assert jx.p99_ttft == pytest.approx(ref.p99_ttft, rel=1e-9)
     _assert_requests(vec_t, jx_t, exact=True)
+    _assert_rows(vec.row(), jx.row())
+    assert jx.beats == vec.beats
+
+
+@pytest.mark.parametrize("rate", [3.0, 8.0])
+def test_jax_engine_gamma_with_many_significant_bits(rate):
+    # gamma 0.3: l_in + gamma * l_real rounds, so the weighted context's
+    # sums depend on their order (the numpy core's: placement order)
+    trace = generate_trace(WorkloadConfig(
+        mean_rate=rate, duration=20.0, seed=11, tail_frac=0.3,
+        in_mu=4.6, out_mu=4.4, out_sigma=1.0))
+    (jx, jx_t), (ref, ref_t), (vec, vec_t) = _run_three(
+        trace, [api.PoolSpec(_jax_spec(), 2)], "aladdin", gamma=0.3)
+    assert vec.finished > 0
+    _assert_requests(vec_t, jx_t, exact=True)
+    _assert_requests(ref_t, jx_t, exact=True)
     _assert_rows(vec.row(), jx.row())
     assert jx.beats == vec.beats
 
@@ -339,25 +357,34 @@ def _out_of_envelope():
 
 
 @pytest.mark.parametrize("feature", ["live_kv", "po2", "scaled", "market"])
-def test_out_of_envelope_raises_not_implemented(feature):
+def test_formerly_out_of_envelope_runs(feature):
+    # scenarios outside the whole-trace core run on the chunked core,
+    # through run_colocated_jax and run_candidate_batch alike
     kw = dict(_out_of_envelope()[feature])
     pools = kw.pop("pools", [api.PoolSpec(_jax_spec(), 2)])
     policy = kw.pop("policy", "aladdin")
-    sc = _scenario(_grid_trace(), pools, policy, "jax")
-    sc = dataclasses.replace(sc, **kw)
-    with pytest.raises(NotImplementedError, match=PART2):
-        fastsim_jax.run_colocated_jax(sc, device="cpu")
-    with pytest.raises(NotImplementedError, match=PART2):
-        fastsim_jax.run_candidate_batch([sc, sc], device="cpu")
-    # the numpy core runs it
-    assert api.run(dataclasses.replace(sc, engine="vectorized")).total > 0
-
-
-def test_policy_candidate_batch_not_implemented():
-    sc = _scenario(_grid_trace(), [api.PoolSpec(_jax_spec(), 2)],
-                   "aladdin", "jax")
-    with pytest.raises(NotImplementedError, match=PART2):
-        fastsim_jax.run_policy_candidate_batch([sc, sc], device="cpu")
+    sc = dataclasses.replace(_scenario(_grid_trace(), pools, policy, "jax"),
+                             **kw)
+    assert not fastsim_jax._legacy_ok(api.resolve_scenario(sc),
+                                      fastsim_jax.check_jax_envelope(sc))
+    jx_t, vec_t = clone_trace(sc.workload), clone_trace(sc.workload)
+    jx = fastsim_jax.run_colocated_jax(
+        dataclasses.replace(sc, workload=jx_t), device="cpu")
+    vec = api.run(dataclasses.replace(sc, workload=vec_t,
+                                      engine="vectorized"))
+    batch = fastsim_jax.run_candidate_batch(
+        [dataclasses.replace(sc, workload=clone_trace(sc.workload))
+         for _ in range(2)], device="cpu")
+    assert vec.finished > 0
+    assert [b.row() for b in batch] == [jx.row(), jx.row()]
+    if feature == "po2":
+        # its own generator: the numpy core's in tolerance only
+        assert jx.attainment == pytest.approx(vec.attainment, abs=0.15)
+        assert jx.finished == vec.finished
+        return
+    _assert_requests(vec_t, jx_t, exact=True)
+    assert (jx.beats, jx.gpu_seconds) == (vec.beats, vec.gpu_seconds)
+    _assert_rows(vec.row(), jx.row())
 
 
 def test_empty_non_legacy_trace_uses_the_numpy_core():
