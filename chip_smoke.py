@@ -182,7 +182,20 @@
    requests, 24 workers) on the card in one launch: finished, attainment,
    p99 TTFT, beats, wall and device ms, beats per second. The launch
    counter is zeroed before (c) and read after (d).
-21. Prints ``{"kernels": [...]}``, then, last,
+21. The chunked core (``kernels/fastsim/csrc/chunk.cu``, ``chunked_phase``):
+   every chunk of the pooled twins (``serving/chunk_twins.py``) and a
+   hand-made chunk at constraint (c)'s edge through the kernel, states
+   equal to the plain version's; the spot cell's first 10 chunks, equal
+   and timed, with each chunk's counted work; the kernel's counters over
+   one more ``run()`` of the spot and feedback cells (each phase's ms a
+   launch at the SM clock nvidia-smi reads meanwhile, tries, placements,
+   constraint (e) tests, members), beside the recorded split of the
+   kernel before its redesign; then, launch counter zeroed, the
+   reference's spot and feedback cells on the card against the numpy
+   core request by request (device ms a launch, the host's split),
+   ``optimize(policy_space=...)`` on both engines (the same plan), and
+   po2 twice (deterministic, within 0.15 of the numpy core).
+22. Prints ``{"kernels": [...]}``, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -198,6 +211,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -2019,6 +2033,7 @@ class LaunchTimes:
 
     def __init__(self, torch, fj):
         self.torch, self.fj, self.ms, self.candidates = torch, fj, [], []
+        self.nbytes = []
 
     def __enter__(self):
         torch, inner = self.torch, self.fj.whole_trace
@@ -2032,6 +2047,13 @@ class LaunchTimes:
             end.synchronize()
             self.ms.append(start.elapsed_time(end))
             self.candidates.append(args[3].reshape(-1).tolist())
+            # the bytes a launch must move, as the slice's bound counts
+            # them: the trace (six values a request) and the fleet's eight
+            # parameters a worker read once, the four outputs a request
+            # written once for each candidate
+            n, C = int(args[0].shape[0]), len(self.candidates[-1])
+            self.nbytes.append(8 * (6 * n + 1 + 8 * len(kw["maxb"]))
+                               + C * 8 * (4 * n + 1))
             return out
 
         self.inner, self.fj.whole_trace = inner, timed
@@ -2225,12 +2247,15 @@ def fastsim_phase(torch, smi):
             plan = api.optimize(sc, **SCALE_OPT)
         per_launch = times.ms if engine == "jax" else None
         fleets = times.candidates if engine == "jax" else None
+        bounds = [b / HBM_BYTES_PER_S * 1e3 for b in times.nbytes] \
+            if engine == "jax" else None
         plans[engine] = plan
         log("[fastsim optimize] " + json.dumps({
             "engine": engine, "n_workers": plan.n_workers,
             "attainment": plan.report.attainment, "evals": plan.evals,
             "wall_s": time.perf_counter() - t0,
             "kernel_device_ms_per_launch": per_launch,
+            "bound_ms_per_launch": bounds,
             "fleet_sizes_per_launch": fleets}))
     jp, vp = plans["jax"], plans["vectorized"]
     if (jp.n_workers, jp.report.attainment) \
@@ -2277,6 +2302,25 @@ def fastsim_phase(torch, smi):
 CHUNK_RATE, CHUNK_SECONDS = 48.0, 150.0
 CHUNK_COMPARED = 10          # the spot cell's first chunks, kernel vs plain
 PO2_TOL = 0.15               # po2's attainment against the numpy core's
+# the chunk kernel's phases (``STATS``' cycle counters, in the order printed)
+CHUNK_PHASES = ("admit", "aggregate", "place", "advance", "billing",
+                "occupancy")
+# the split of the chunk kernel before its redesign (the kernel of commit
+# 1846c2c with the counters added), measured by this script's
+# ``chunk_split`` on an NVIDIA H100 80GB HBM3 at 700 W, SM clock 1980 MHz:
+# phase ms a launch, constraint (e) tests a placement, members of a tested
+# lane (mean, largest) and tries a placement
+CHUNK_SPLIT_BEFORE = {
+    "spot": {"ms_per_launch": 6.9329, "phase_ms_per_launch": {
+        "admit": 0.0312, "aggregate": 0.4200, "place": 5.8497,
+        "advance": 0.4213, "billing": 0.1463, "occupancy": 0.0216},
+        "e_tests_per_placement": 1.0, "members_mean": 24.32,
+        "members_max": 43, "tries_per_placement": 7.52},
+    "feedback": {"ms_per_launch": 6.6867, "phase_ms_per_launch": {
+        "admit": 0.0278, "aggregate": 0.4746, "place": 5.4999,
+        "advance": 0.4639, "billing": 0.1523, "occupancy": 0.0226},
+        "e_tests_per_placement": 1.0, "members_mean": 23.59,
+        "members_max": 44, "tries_per_placement": 10.85}}
 
 
 class ChunkTimes:
@@ -2345,6 +2389,93 @@ class ChunkTimes:
                 * 1e3}
 
 
+class SmClock:
+    """The SM clock in MHz (``nvidia-smi --query-gpu=clocks.sm``), read
+    over and over on a thread while the context is open."""
+
+    def __enter__(self):
+        self.mhz, self._stop = [], threading.Event()
+
+        def poll():
+            while not self._stop.is_set():
+                out = subprocess.run(
+                    ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True).stdout.strip()
+                if out.isdigit():
+                    self.mhz.append(int(out))
+                self._stop.wait(0.05)
+
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def median(self) -> float:
+        if not self.mhz:
+            raise AssertionError("[fastsim chunk] nvidia-smi gave no SM "
+                                 "clock")
+        return float(sorted(self.mhz)[len(self.mhz) // 2])
+
+
+def chunk_split(torch, fj, run, smi) -> dict:
+    """``run()`` once more with the chunk kernel's counters on (``stats``,
+    ``kernels.fastsim.STATS``; the main path passes none): each phase's
+    share of the launches' cycles and its ms a launch at the SM clock that
+    nvidia-smi reads meanwhile, the placements, constraint (e) tests and the
+    members of the tested lanes."""
+    from repro_torch.kernels.fastsim import STATS, chunk
+    acc = dict.fromkeys(STATS, 0)
+    launches = 0
+
+    def counted(*args, **kw):
+        nonlocal launches
+        stats = torch.zeros((args[0].shape[0], len(STATS)),
+                            dtype=torch.int64, device=args[0].device)
+        out = chunk(*args, stats=stats, **kw)
+        for row in stats.cpu().tolist():
+            for k, v in zip(STATS, row):
+                acc[k] = max(acc[k], v) if k == "members_max" \
+                    else acc[k] + v
+        launches += 1
+        return out
+
+    inner, fj.chunk = fj.chunk, counted
+    try:
+        with SmClock() as clock:
+            run()
+    finally:
+        fj.chunk = inner
+    mhz = clock.median()
+    cyc = acc["cycles"]
+    phases = {k: acc[f"{k}_cycles"] for k in CHUNK_PHASES}
+    if sum(phases.values()) > cyc:
+        raise AssertionError(f"[fastsim chunk] split: phases {phases} "
+                             f"exceed the launches' {cyc} cycles")
+    place = {k: acc[f"{k}_cycles"] for k in ("try", "commit")}
+    return {
+        "launches": launches, "sm_clock_mhz": mhz,
+        "place_ms_per_launch": {k: v / launches / (mhz * 1e3)
+                                for k, v in place.items()},
+        "tries_with_a_lane": acc["any_lane"],
+        "tries_pruned": acc["dominated"],
+        "ms_per_launch": cyc / launches / (mhz * 1e3),
+        "share": {k: v / cyc for k, v in phases.items()},
+        "phase_ms_per_launch": {k: v / launches / (mhz * 1e3)
+                                for k, v in phases.items()},
+        "beats": acc["beats"], "tried": acc["tried"],
+        "placed": acc["placed"],
+        "tries_per_placement": acc["tried"] / max(acc["placed"], 1),
+        "e_tests_per_try": acc["e_tests"] / max(acc["tried"], 1),
+        "e_tests": acc["e_tests"],
+        "e_tests_per_placement": acc["e_tests"] / max(acc["placed"], 1),
+        "members_mean": acc["members"] / max(acc["e_tests"], 1),
+        "members_max": acc["members_max"], "card": smi}
+
+
 def _held_states(torch, got, want, what: str) -> float:
     """A chunk's advanced state from the kernel against the plain
     version's: equal, NaN where NaN. Returns the largest absolute
@@ -2411,7 +2542,7 @@ def chunked_phase(torch, smi):
     from repro_torch.core.slo import PAPER_SLOS
     from repro_torch.core.worker_config import (A100_80G, make_worker_spec,
                                                 spot_variant)
-    from repro_torch.kernels.fastsim import chunk, chunk_layout
+    from repro_torch.kernels.fastsim import STATS, chunk, chunk_layout
     from repro_torch.serving import api, chunk_twins
     from repro_torch.serving import fastsim_jax as fj
     from repro_torch.serving import workload as wl
@@ -2515,10 +2646,12 @@ def chunked_phase(torch, smi):
             sim.step_absorb(f, i)
 
     calls = chunk_twins.record_chunks(first_chunks)
-    dev_ms, nbytes, tokens = [], [], 0
+    dev_ms, nbytes, tokens, work = [], [], 0, []
     for k, (args, kw, want, _s) in enumerate(calls):
         dargs = [a.to(cuda) for a in args]
-        chunk(*dargs, **kw)                             # warm
+        stats = torch.zeros((1, len(STATS)), dtype=torch.int64, device=cuda)
+        chunk(*dargs, **kw, stats=stats)                # warm, counted
+        work.append(dict(zip(STATS, stats[0].tolist())))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2558,9 +2691,21 @@ def chunked_phase(torch, smi):
             "bound_ms": b_ms, "bound_by": b_by}
     log(json.dumps(case))
     log("[fastsim chunk first chunks] " + json.dumps({
+        "first_ms": dev_ms[0], "tenth_ms": dev_ms[min(9, len(dev_ms) - 1)],
+        **{k: [c[k] for c in work] for k in ("beats", "tried", "dominated",
+                                             "placed", "e_tests",
+                                             "members")},
         "W_B_Q": [[c[1]["W"], c[1]["B"], c[1]["Q"]] for c in calls],
         "device_ms": dev_ms, "plain_ms": [c[3] * 1e3 for c in calls],
         "bytes": nbytes, "tokens_decoded": tokens, "card": smi}))
+
+    # the kernel's counters over the spot and feedback cells, outside the
+    # main path (their launches synchronise to read the counters)
+    for what, make in (("spot", spot_cell), ("feedback", feedback_cell)):
+        split = chunk_split(torch, fj, lambda: api.run(make("jax")), smi)
+        log(f"[fastsim chunk split] {what}, before the redesign "
+            "(recorded): " + json.dumps(CHUNK_SPLIT_BEFORE[what]))
+        log(f"[fastsim chunk split] {what}: " + json.dumps(split))
 
     # the main path: the cells on the card, the launch counter zeroed just
     # before and read just after
@@ -2614,8 +2759,9 @@ def chunked_phase(torch, smi):
             "n_workers": p.n_workers, "gpu_seconds": p.cost,
             "attainment": p.report.attainment, "wall_s": wall,
             **({"launches": len(times.ms),
-                "kernel_device_ms_mean": times.summary(wall)[
-                    "kernel_device_ms_mean"]} if engine == "jax" else {}),
+                **{k: times.summary(wall)[k] for k in (
+                    "kernel_device_ms_mean", "kernel_device_ms_max",
+                    "bound_ms_per_chunk")}} if engine == "jax" else {}),
             "card": smi}))
     jp, vp = plans["jax"], plans["vectorized"]
     if (jp.params, jp.n_workers, jp.cost, jp.evals) \
@@ -2631,10 +2777,13 @@ def chunked_phase(torch, smi):
     # (e) po2: its own generator, deterministic; the numpy core's
     # attainment within PO2_TOL
     rows = []
-    for _ in range(2):
+    with ChunkTimes(torch, fj) as po2_times:    # the first run, timed
         t0 = time.perf_counter()
         rows.append(api.run(spot_cell("jax", "po2")).row())
-        wall = time.perf_counter() - t0
+        po2_split = po2_times.summary(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rows.append(api.run(spot_cell("jax", "po2")).row())
+    wall = time.perf_counter() - t0
     if rows[0] != rows[1]:
         raise AssertionError("[fastsim chunk] po2: two runs differ")
     vec = run_colocated_vectorized(spot_cell("vectorized", "po2"))
@@ -2646,6 +2795,9 @@ def chunked_phase(torch, smi):
         "attainment": rows[0]["attainment"],
         "numpy_core_attainment": vec.attainment,
         "finished": rows[0]["finished"], "run_wall_ms": wall * 1e3,
+        **{k: po2_split[k] for k in ("chunks", "kernel_device_ms_mean",
+                                     "kernel_device_ms_max",
+                                     "bound_ms_per_chunk")},
         "card": smi}))
     launches = chunk.launches
     if launches < 1:

@@ -50,15 +50,20 @@ int whole_trace_launch(const void* arrival, const void* l_in,
 // candidate; `fin`/`iin` are each candidate's packed state (float64 and
 // int64 buffers, ops.py's chunk_layout), `fout`/`iout` the advanced state;
 // `s_lo` (C, n) and `s_f` (C, 3, n) the re-entrant sinks; policy 0 aladdin,
-// 1 jsq, 2 po2
+// 1 jsq, 2 po2; `scratch` (C, fastsim_chunk_scratch_bytes(W, B)) bytes, or
+// null when that is 0; `stats` (C, ops.py's len(STATS)) int64, or null
 int fastsim_chunk_launch(const void* arrival, const void* l_in,
                          const void* l_real, const void* rank_r,
                          const void* ttft_r, const void* atgt_r,
                          const void* s_lo, const void* s_f, const void* fin,
                          const void* iin, void* fout, void* iout,
-                         void* scratch, int n, int W, int B, int Q, int C,
-                         double hb, double gamma,
+                         void* scratch, void* stats, int n, int W, int B,
+                         int Q, int C, double hb, double gamma,
                          double ttft, double atgt, int policy, int edf,
                          int tagged, void* stream);
+
+// The global scratch a chunk launch needs for each candidate's member lists:
+// 0 where they fit in shared memory beside the lanes
+long long fastsim_chunk_scratch_bytes(int W, int B);
 
 }  // extern "C"

@@ -135,19 +135,28 @@ PyObject* whole_trace(PyObject*, PyObject* const* a, Py_ssize_t n) {
 }
 
 // fastsim_chunk(arrival, l_in, l_real, rank_r, ttft_r, atgt_r, s_lo, s_f,
-//               fin, iin, fout, iout, scratch, n, W, B, Q, C, hb, gamma,
-//               ttft, atgt, policy, edf, tagged, stream)
+//               fin, iin, fout, iout, scratch or None, stats or None, n, W,
+//               B, Q, C, hb, gamma, ttft, atgt, policy, edf, tagged, stream)
 PyObject* fastsim_chunk(PyObject*, PyObject* const* a, Py_ssize_t n) {
   const char* name = "fastsim_chunk";
-  const Args in(a, n, "pppppppppppppiiiiiddddiiip", name);
+  const Args in(a, n, "ppppppppppppppiiiiiddddiiip", name);
   if (!in.ok) return nullptr;
   return result(fastsim_chunk_launch(
                     in.p(0), in.p(1), in.p(2), in.p(3), in.p(4), in.p(5),
                     in.p(6), in.p(7), in.p(8), in.p(9), in.p(10), in.p(11),
-                    in.p(12), in.i(13), in.i(14), in.i(15), in.i(16),
-                    in.i(17), in.d(18), in.d(19), in.d(20), in.d(21),
-                    in.i(22), in.i(23), in.i(24), in.p(25)),
+                    in.p(12), in.p(13), in.i(14), in.i(15), in.i(16),
+                    in.i(17), in.i(18), in.d(19), in.d(20), in.d(21),
+                    in.d(22), in.i(23), in.i(24), in.i(25), in.p(26)),
                 name);
+}
+
+// fastsim_chunk_scratch(W, B): the bytes of global scratch a chunk launch
+// needs for each candidate, 0 where its member lists fit in shared memory
+PyObject* fastsim_chunk_scratch(PyObject*, PyObject* const* a,
+                                Py_ssize_t n) {
+  const Args in(a, n, "ii", "fastsim_chunk_scratch");
+  if (!in.ok) return nullptr;
+  return PyLong_FromLongLong(fastsim_chunk_scratch_bytes(in.i(0), in.i(1)));
 }
 
 template <PyObject* (*F)(PyObject*, PyObject* const*, Py_ssize_t)>
@@ -170,6 +179,10 @@ PyMethodDef methods[] = {
     {"fastsim_chunk", fastcall<fastsim_chunk>(), METH_FASTCALL,
      "Launch the chunked simulation core; raises RuntimeError on a CUDA "
      "error."},
+    {"fastsim_chunk_scratch", fastcall<fastsim_chunk_scratch>(),
+     METH_FASTCALL,
+     "The bytes of global scratch a chunked-core launch needs for each "
+     "candidate."},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef module_def = {PyModuleDef_HEAD_INIT, "_kernels", nullptr, -1,

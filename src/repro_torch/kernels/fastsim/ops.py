@@ -50,7 +50,7 @@ doubles and exact integers."""
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -886,24 +886,54 @@ def _chunk_check(fstate, istate, W, B, Q, policy):
     return nf, ni, fields
 
 
+# The kernel's optional counters, one row of int64 per candidate (``chunk``'s
+# ``stats``): SM cycles on the CTA's thread 0 for the whole launch and for
+# each phase of a beat (admission and the EDF sort, the lanes' aggregates,
+# the placement pass, the lanes' advance, the billing replay, the occupancy
+# test); beats; queued requests the placement pass tried; requests placed;
+# constraint (e) tests, one for each lane that passed constraints (a)-(d)
+# for an aladdin request; the members of the tested lanes, summed and at
+# most; the placement pass's own split: cycles of its tries' rounds over
+# the lanes (staging the queue included), of the choices and commits, and
+# the tries that found a lane; and the tries that a request which found no
+# lane earlier in the pass settled without a round.
+STATS = ("cycles", "admit_cycles", "aggregate_cycles", "place_cycles",
+         "advance_cycles", "billing_cycles", "occupancy_cycles", "beats",
+         "tried", "placed", "e_tests", "members", "members_max",
+         "try_cycles", "commit_cycles", "any_lane", "dominated")
+
+
+def chunk_scratch_bytes(W: int, B: int) -> int:
+    """The global scratch a kernel launch needs for each candidate's member
+    lists (chunk.cu's ``member_bytes``), or 0 where they fit in shared
+    memory beside the lanes. It asks the built library, so it needs the
+    card."""
+    return int(_build.module().fastsim_chunk_scratch(W, B))
+
+
 def chunk(fstate: torch.Tensor, istate: torch.Tensor, arrival: torch.Tensor,
           l_in: torch.Tensor, l_real: torch.Tensor, rank_r: torch.Tensor,
           ttft_r: torch.Tensor, atgt_r: torch.Tensor, s_lo: torch.Tensor,
           s_f: torch.Tensor, *, W: int, B: int, Q: int, hb: float,
           gamma: float, ttft: float, atgt: float, policy: str,
-          edf: bool = False,
-          tagged: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+          edf: bool = False, tagged: bool = False,
+          stats: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """See ``chunk_plain``. On CUDA: one launch for all candidates, which
     writes new state tensors and leaves its inputs as they were, so the
-    host can run the same chunk again from the same state."""
+    host can run the same chunk again from the same state. ``stats``, a
+    (C, len(STATS)) int64 tensor on the card, receives the kernel's
+    counters (``STATS``): the launch adds to it (``members_max`` keeps the
+    larger), so one tensor can gather a run. The plain version has none."""
     kw = dict(W=W, B=B, Q=Q, hb=hb, gamma=gamma, ttft=ttft, atgt=atgt,
               policy=policy, edf=edf, tagged=tagged)
     args = (fstate, istate, arrival, l_in, l_real, rank_r, ttft_r, atgt_r,
             s_lo, s_f)
     if not fstate.is_cuda:
-        if fstate.device.type == "cpu":
+        if fstate.device.type == "cpu" and stats is None:
             return chunk_plain(*args, **kw)
-        raise ValueError(f"chunk: unsupported device {fstate.device}")
+        raise ValueError(f"chunk: unsupported device {fstate.device}, or "
+                         "stats without the kernel")
     _chunk_check(fstate, istate, W, B, Q, policy)
     C = int(fstate.shape[0])
     n = int(arrival.shape[0])
@@ -913,6 +943,8 @@ def chunk(fstate: torch.Tensor, istate: torch.Tensor, arrival: torch.Tensor,
             (s_lo, torch.int64, (C, n)), (s_f, torch.float64, (C, 3, n)),
             (fstate, torch.float64, tuple(fstate.shape)),
             (istate, torch.int64, tuple(istate.shape)))
+    if stats is not None:
+        want += ((stats, torch.int64, (C, len(STATS))),)
     for x, dt, shape in want:
         if x.dtype != dt or tuple(x.shape) != shape \
                 or x.device != fstate.device or not x.is_contiguous():
@@ -924,14 +956,17 @@ def chunk(fstate: torch.Tensor, istate: torch.Tensor, arrival: torch.Tensor,
                          "2**31 - 1")
     fout = torch.empty_like(fstate)
     iout = torch.empty_like(istate)
-    scratch = torch.empty((C, W, B), dtype=torch.float64,
-                          device=fstate.device)
+    nbytes = chunk_scratch_bytes(W, B)
+    scratch = torch.empty((C, nbytes), dtype=torch.uint8,
+                          device=fstate.device) if nbytes else None
     _build.module().fastsim_chunk(
         arrival.data_ptr(), l_in.data_ptr(), l_real.data_ptr(),
         rank_r.data_ptr(), ttft_r.data_ptr(), atgt_r.data_ptr(),
         s_lo.data_ptr(), s_f.data_ptr(), fstate.data_ptr(),
         istate.data_ptr(), fout.data_ptr(), iout.data_ptr(),
-        scratch.data_ptr(), n, W, B, Q, C,
+        None if scratch is None else scratch.data_ptr(),
+        None if stats is None else stats.data_ptr(),
+        n, W, B, Q, C,
         float(hb), float(gamma), float(ttft), float(atgt),
         _POLICY_CODES[policy], bool(edf), bool(tagged),
         torch._C._cuda_getCurrentRawStream(fstate.get_device()))
@@ -941,6 +976,7 @@ def chunk(fstate: torch.Tensor, istate: torch.Tensor, arrival: torch.Tensor,
 
 chunk.launches = 0
 
-__all__ = ["BIG", "OVF_QUEUE", "OVF_SLOTS", "SCALARS", "chunk",
-           "chunk_layout", "chunk_plain", "pack_state", "po2_draw",
-           "unpack_state", "whole_trace", "whole_trace_plain"]
+__all__ = ["BIG", "OVF_QUEUE", "OVF_SLOTS", "SCALARS", "STATS", "chunk",
+           "chunk_layout", "chunk_plain", "chunk_scratch_bytes",
+           "pack_state", "po2_draw", "unpack_state", "whole_trace",
+           "whole_trace_plain"]

@@ -1,8 +1,9 @@
 """Small pooled scenarios that reach every branch of the chunked compiled
 core (``kernels/fastsim/csrc/chunk.cu``): live KV with preemption churn and
 eviction ties, policy-scaled fleets, po2, a spot market with notice, the
-KV-crush chaos cell, two tenants, and a ``gamma`` whose weighted-context
-sums round differently in another order.
+KV-crush chaos cell, two tenants, a ``gamma`` whose weighted-context sums
+round differently in another order, and a best-fit walk that constraint
+(e) turns away from lane after lane.
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda_fastsim.py`` run each on the
 CPU while ``record_chunks`` keeps every chunk's operands, then replay them
@@ -22,8 +23,9 @@ from repro_torch.core.perf_model import (DecodeModel, KVModel, PerfModel,
 from repro_torch.core.request import Request
 from repro_torch.core.slo import SLO
 from repro_torch.core.worker_config import WorkerSpec, spot_variant
-from repro_torch.kernels.fastsim.ops import (BIG, chunk_layout, pack_state,
-                                             unpack_state)
+from repro_torch.kernels.fastsim.ops import (BIG, F_LANES, I_LANES,
+                                             SCALARS, chunk_layout,
+                                             pack_state, unpack_state)
 from repro_torch.serving import api, fastsim_jax
 from repro_torch.serving import workload as wl
 from repro_torch.serving.tenants import materialize_tenants
@@ -109,6 +111,31 @@ def _tenants():
     return scenario(merged, spec=kv_spec("crush"), tenants=tenants)
 
 
+def e_walk_trace() -> List[Request]:
+    """For ``crush-e-walk``: first, at 0, a request whose context at its
+    end (l_in + l_real) exceeds 0.9 of a crush lane's KV, so every lane
+    passes constraints (a)-(d) for it and fails (e), and it never finds a
+    lane; then bursts of nine identical requests that arrive at one instant
+    (four fit a lane under (e): the best-fit walk rejects the fullest lanes
+    in turn, and lanes of equal load tie by rank), each with a one-token
+    request behind a prompt whose prefill outlasts a 50 ms beat, so it is a
+    member with nothing left to decode (rem 0) at the next placement
+    pass."""
+    reqs = [Request(l_in=100, l_pred=0, l_real=2300, arrival=0.0)]
+    for b in range(12):
+        t = 0.5 + 1.5 * b
+        reqs += [Request(l_in=200, l_pred=0, l_real=300, arrival=t)
+                 for _ in range(9)]
+        reqs.append(Request(l_in=2000, l_pred=0, l_real=1, arrival=t))
+    return reqs
+
+
+def _e_walk():
+    sc = scenario(e_walk_trace(), spec=kv_spec("crush"), n=6)
+    return dataclasses.replace(sc, topology=dataclasses.replace(
+        sc.topology, heartbeat=0.05))
+
+
 TWINS: Dict[str, Callable[[], api.Scenario]] = {
     "tight-aladdin": lambda: scenario(trace(11, 3.0, 20.0)),
     "crush-jsq": lambda: scenario(trace(11, 3.0, 20.0), policy="jsq",
@@ -126,6 +153,7 @@ TWINS: Dict[str, Callable[[], api.Scenario]] = {
     "chaos": _chaos,
     "eviction-ties": lambda: scenario(bursts(), spec=kv_spec("crush"), n=1),
     "tenants-crush-aladdin": _tenants,
+    "crush-e-walk": _e_walk,
 }
 
 
@@ -209,3 +237,33 @@ def order_edge_chunk(gamma: float = 0.3, rows: int = 6, seed: int = 0):
     kw = dict(W=W, B=B, Q=Q, hb=0.25, gamma=gamma, ttft=2.0, atgt=atgt,
               policy="aladdin")
     return args, kw
+
+
+def widen(args, kw, W2: int, B2: int):
+    """A recorded chunk's operands with each candidate's state moved into
+    ``W2`` lanes of ``B2`` slots (at least the chunk's own): the added lanes
+    off (mode 0), the added slots free. The chunk then runs the same
+    decisions, from a state whose member lists take more memory. Returns
+    ``(args, kw)``."""
+    W, B, Q = kw["W"], kw["B"], kw["Q"]
+    pads = {"mode": 0, "rank": BIG, "empty_at": BIG, "MAXB": 1,
+            "rtf1": math.nan, "rtpe": math.nan, "rtfn": math.nan}
+    fo, io = [], []
+    for c in range(args[0].shape[0]):
+        st = unpack_state(args[0][c].numpy(), args[1][c].numpy(), W, B, Q)
+        new = {}
+        for name, v in st.items():
+            if name in SCALARS or name == "q":
+                new[name] = v
+            elif name in F_LANES or name in I_LANES:
+                new[name] = np.concatenate(
+                    [v, np.full(W2 - W, pads.get(name, 0), v.dtype)])
+            else:
+                rows = np.full((W2, B2), pads.get(name, 0), v.dtype)
+                rows[:W, :B] = v.reshape(W, B)
+                new[name] = rows
+        f, i = pack_state(new, W2, B2, Q)
+        fo.append(f)
+        io.append(i)
+    return ((torch.from_numpy(np.stack(fo)), torch.from_numpy(np.stack(io)))
+            + tuple(args[2:]), dict(kw, W=W2, B=B2))

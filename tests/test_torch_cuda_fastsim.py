@@ -16,10 +16,13 @@ The chunked core (``kernels/fastsim/csrc/chunk.cu``) is held against its
 plain version chunk by chunk: each pooled twin of
 ``repro_torch.serving.chunk_twins`` (live KV with preemption churn,
 policy-scaled fleets, a spot market with notice, the KV-crush chaos cell,
-po2, two tenants, gamma 0.3) runs on the CPU while every chunk's packed
+po2, two tenants, gamma 0.3, a best-fit walk that constraint (e) turns
+away from lane after lane) runs on the CPU while every chunk's packed
 state is recorded, and the kernel runs each recorded state; the advanced
 states must agree exactly, and so must a hand-made chunk that only the
-numpy core's summation order of the weighted context places. Then whole
+numpy core's summation order of the weighted context places. The same
+chunks moved into 16 lanes of 512 slots run with the member lists in
+global memory, and with the kernel's counters on, which must add up. Then whole
 runs on the card against the numpy core
 (request by request, beats, billed GPU-seconds), and
 ``run_policy_candidate_batch``'s lockstep launches against single runs.
@@ -42,7 +45,8 @@ from repro_torch.core.request import Request  # noqa: E402
 from repro_torch.core.slo import PAPER_SLOS, SLO  # noqa: E402
 from repro_torch.core.worker_config import (A100_80G,  # noqa: E402
                                             WorkerSpec, make_worker_spec)
-from repro_torch.kernels.fastsim import (chunk, chunk_layout,  # noqa: E402
+from repro_torch.kernels.fastsim import (STATS, chunk,  # noqa: E402
+                                         chunk_layout, chunk_scratch_bytes,
                                          whole_trace)
 from repro_torch.serving import api, chunk_twins, fastsim_jax  # noqa: E402
 from repro_torch.serving.workload import (WorkloadConfig,  # noqa: E402
@@ -214,6 +218,56 @@ def test_chunk_kernel_matches_plain_version(card, case):
         assert torch.equal(ig.cpu(), iw)
         torch.testing.assert_close(fg.cpu(), fw, rtol=0.0, atol=0.0,
                                    equal_nan=True)
+
+
+def _held_chunk(got, want):
+    fg, ig = got
+    fw, iw = want
+    assert torch.equal(ig.cpu(), iw)
+    torch.testing.assert_close(fg.cpu(), fw, rtol=0.0, atol=0.0,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("case", ["chaos", "eviction-ties", "po2-reactive",
+                                  "tenants-crush-aladdin"])
+def test_chunk_kernel_member_lists_in_global_memory(card, case):
+    # every chunk moved into 16 lanes of 512 slots: the lanes' member lists
+    # and the warps' scratch (chunk.cu's member_bytes) outgrow shared
+    # memory and live in the wrapper's global scratch, with the same code
+    for args, kw, _, _ in chunk_twins.twin_chunks(case):
+        wide, kw2 = chunk_twins.widen(args, kw, max(kw["W"], 16), 512)
+        assert chunk_scratch_bytes(kw2["W"], kw2["B"]) > 0
+        got = chunk(*(a.to(card) for a in wide), **kw2)
+        _held_chunk(got, chunk(*wide, **kw2))
+
+
+@pytest.mark.parametrize("case", ["chaos", "crush-e-walk", "crush-jsq",
+                                  "po2-reactive", "tenants-crush-aladdin"])
+def test_chunk_kernel_counters(card, case):
+    _, _, fields = chunk_layout(1, 1, 1)             # the scalars lead
+    col = {k: fields[k][1] for k in ("j", "seqc")}
+    for args, kw, want, _ in chunk_twins.twin_chunks(case):
+        stats = torch.zeros((1, len(STATS)), dtype=torch.int64, device=card)
+        got = chunk(*(a.to(card) for a in args), **kw, stats=stats)
+        _held_chunk(got, want)          # the counters change no result
+        st = dict(zip(STATS, stats[0].tolist()))
+        phases = sum(st[f"{k}_cycles"] for k in (
+            "admit", "aggregate", "place", "advance", "billing",
+            "occupancy"))
+        assert 0 <= phases <= st["cycles"]
+        assert st["try_cycles"] + st["commit_cycles"] <= st["place_cycles"]
+        delta = {k: int(want[1][0, c] - args[1][0, c])
+                 for k, c in col.items()}
+        assert st["beats"] == delta["j"]
+        assert st["placed"] == delta["seqc"]
+        assert st["placed"] <= st["any_lane"] <= st["tried"]
+        assert st["any_lane"] + st["dominated"] <= st["tried"]
+        if kw["policy"] == "aladdin":
+            assert st["placed"] <= st["e_tests"]
+            assert st["members"] <= st["e_tests"] * st["members_max"]
+        else:
+            assert st["e_tests"] == 0
+        assert chunk_scratch_bytes(kw["W"], kw["B"]) == 0  # shared memory
 
 
 def test_chunk_kernel_sums_weighted_context_in_join_order(card):

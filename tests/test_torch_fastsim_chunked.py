@@ -30,6 +30,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.serving import api as ref_api  # noqa: E402
+from repro_torch.core.placement import kv_peak_arrays  # noqa: E402
 from repro_torch.core.perf_model import (DecodeModel, KVModel,  # noqa: E402
                                          PerfModel, PrefillModel)
 from repro_torch.core.request import Request  # noqa: E402
@@ -38,7 +39,11 @@ from repro_torch.core.worker_config import (WorkerSpec,  # noqa: E402
                                             spot_variant)
 from repro_torch.kernels.fastsim import (chunk, chunk_layout,  # noqa: E402
                                          chunk_plain)
+from repro_torch.kernels.fastsim.ops import (F_LANES, F_ROWS,  # noqa: E402
+                                             I_LANES, I_ROWS, STATS,
+                                             unpack_state)
 from repro_torch.serving import api, fastsim_jax  # noqa: E402
+from repro_torch.serving import chunk_twins  # noqa: E402
 from repro_torch.serving.chunk_twins import order_edge_chunk  # noqa: E402
 from repro_torch.serving.tenants import materialize_tenants  # noqa: E402
 from repro_torch.serving.workload import (WorkloadConfig,  # noqa: E402
@@ -422,6 +427,192 @@ def test_pooled_candidate_batch_runs_one_at_a_time():
         vec, _ = _numpy_core(sc)
         assert rep.beats == vec.beats
         _held_rows(vec.row(), rep.row())
+
+
+# ---- constraint (e) as the chunk kernel tests it -----------------------------
+
+
+def _kv_peak_sorted(rem, ctx, rem_c, ctx_c, h, j):
+    """The chunk kernel's constraint (e) peak (``kv_fits`` in chunk.cu):
+    the members' rems ascending beside the suffix sums of their contexts,
+    a term at the first member of each rem >= 1, at k = 1 for members with
+    rem 0 and at the candidate's max(rem_c, 1), the candidate counted where
+    its rem reaches k."""
+    order = sorted(range(len(rem)), key=rem.__getitem__)
+    rs = [rem[i] for i in order]
+    m = len(rs)
+    suf = [0] * (m + 1)
+    for i in range(m - 1, -1, -1):
+        suf[i] = suf[i + 1] + ctx[order[i]]
+    terms = []
+
+    def term(k, idx):
+        cand = rem_c >= k
+        cnt = (m - idx) + cand
+        if cnt:
+            terms.append(h * float(suf[idx] + (ctx_c if cand else 0)
+                                   + cnt * k) + j * float(cnt))
+
+    for q in range(m):
+        if rs[q] >= 1 and (q == 0 or rs[q - 1] < rs[q]):
+            term(rs[q], q)
+    if rs.count(0):
+        term(1, rs.count(0))
+    kc = max(rem_c, 1)
+    term(kc, sum(1 for r in rs if r < kc))
+    best = max(terms, default=-math.inf)
+    peak = h * float(suf[0] + ctx_c) + j * float(m + 1)
+    return best if best > peak else peak
+
+
+# Property-based when hypothesis is installed; otherwise the same property
+# runs over the edge cases below and a fixed seed set, as in test_tenants.py
+try:
+    from hypothesis import example, given, settings
+    from hypothesis import strategies as hst
+    HAVE_HYPOTHESIS = True
+except ImportError:                                    # pragma: no cover
+    HAVE_HYPOTHESIS = False
+
+# h and j with many significant bits among them
+_KV_COEFS = (0.0, 1.0, 1 / 3, 0.3, 8.0, math.pi * 1e-3, 1 - 2 ** -52)
+# (members as (rem, ctx), rem_c, ctx_c, h, j): an empty lane, rems of 0,
+# equal rems, equal contexts
+_KV_EDGES = [([], 0, 0, 1.0, 8.0), ([], 5, 300, 1 / 3, 0.3),
+             ([(0, 10), (0, 20)], 0, 7, 0.3, 1 / 3),
+             ([(3, 5), (3, 5), (3, 9)], 3, 5, 1 / 3, 0.3),
+             ([(1, 2), (0, 4), (7, 4)], 1, 4, math.pi, 1 - 2 ** -52)]
+
+
+def _kv_seeded(seed):
+    rng = np.random.default_rng(seed)
+
+    def coef():
+        return (float(rng.choice(_KV_COEFS)) if rng.random() < 0.5
+                else float(rng.uniform(0.0, 64.0)))
+
+    members = [(int(rng.integers(0, 41)), int(rng.integers(0, 5001)))
+               for _ in range(int(rng.integers(0, 41)))]
+    return (members, int(rng.integers(0, 41)), int(rng.integers(0, 5001)),
+            coef(), coef())
+
+
+def _kv_peak_cases(fn):
+    if not HAVE_HYPOTHESIS:
+        return pytest.mark.parametrize(
+            "members, rem_c, ctx_c, h, j",
+            _KV_EDGES + [_kv_seeded(s) for s in range(64)])(fn)
+    for case in _KV_EDGES:
+        fn = example(*case)(fn)
+    coef = hst.one_of(hst.sampled_from(_KV_COEFS),
+                      hst.floats(0.0, 64.0, allow_nan=False))
+    fn = given(members=hst.lists(hst.tuples(hst.integers(0, 40),
+                                            hst.integers(0, 5000)),
+                                 max_size=40),
+               rem_c=hst.integers(0, 40), ctx_c=hst.integers(0, 5000),
+               h=coef, j=coef)(fn)
+    return settings(max_examples=400, deadline=None)(fn)
+
+
+@_kv_peak_cases
+def test_sorted_members_kv_peak_equals_kv_peak_arrays(members, rem_c, ctx_c,
+                                                      h, j):
+    # bit for bit (== on floats): integer sums are exact in any order and
+    # every term keeps kv_peak_arrays' expression
+    rem = [r for r, _ in members]
+    ctx = [c for _, c in members]
+    want = kv_peak_arrays(np.array(rem + [rem_c], np.int64),
+                          np.array(ctx + [ctx_c], np.int64), h, j)
+    assert _kv_peak_sorted(rem, ctx, rem_c, ctx_c, h, j) == want
+
+
+def _lanes_turned_away(args, kw):
+    """For the first queued request of a packed chunk state: the serving
+    lanes that pass constraints (a)-(d), as the numpy core tests them for
+    an untagged request, and of those the ones constraint (e) turns away
+    (``kv_peak_arrays`` above theta * M)."""
+    W, B, Q = kw["W"], kw["B"], kw["Q"]
+    st = unpack_state(args[0][0].numpy(), args[1][0].numpy(), W, B, Q)
+    l_in, l_real, s_lo = args[3], args[4], args[8][0]
+    r = int(st["q"][0])
+    liv, lrv, lov = int(l_in[r]), int(l_real[r]), int(s_lo[r])
+    gamma, atgt, theta = kw["gamma"], kw["atgt"], float(st["theta"])
+    sst, rli, rlr, rlo = (st[k] for k in ("sst", "rli", "rlr", "rlo"))
+    feasible, turned = [], []
+    for w in range(W):
+        if st["mode"][w] != 2:
+            continue
+        lane = range(w * B, w * B + B)
+        ongoing = sorted((s for s in lane if sst[s] == 2),
+                         key=lambda s: st["rjsq"][s])
+        new = sorted((s for s in lane if sst[s] == 1),
+                     key=lambda s: st["rnsq"][s])
+        wctx = 0.0
+        for s in ongoing + new:
+            wctx += int(rli[s]) + gamma * int(rlr[s])
+        cnt = len(ongoing) + len(new)
+        slack = min((atgt * max(int(rlo[s]) - 1, 0) - st["rtds"][s]
+                     for s in ongoing), default=math.inf)
+        k2, c2, c3 = st["K2"][w], st["C2"][w], st["C3"][w]
+        budget = (max(((atgt - c3) - c2 * (cnt + 1)) / k2, 0.0)
+                  if k2 > 0 else math.inf)
+        pre_t = st["K1"][w] * (sum(int(rli[s]) for s in new) + liv) \
+            + st["C1"][w]
+        if not (cnt + 1 <= st["MAXB"][w]
+                and wctx + (liv + gamma * lrv) <= theta * budget
+                and pre_t <= kw["ttft"]
+                and pre_t <= theta * max(slack, 0.0)):
+            continue
+        feasible.append(w)
+        mem = ongoing + new
+        rems = [max(int(rlr[s]) - int(rlo[s]), 0) for s in mem]
+        ctxs = [int(rli[s]) + int(rlo[s]) for s in mem]
+        peak = kv_peak_arrays(np.array(rems + [max(lrv - lov, 0)], np.int64),
+                              np.array(ctxs + [liv + lov], np.int64),
+                              st["H"][w], st["J"][w])
+        if peak > theta * st["M"][w]:
+            turned.append(w)
+    return feasible, turned
+
+
+def test_crush_e_walk_stresses_constraint_e():
+    # the twin's first chunk: its first queued request passes (a)-(d) on at
+    # least 4 lanes and constraint (e) turns every one of them away
+    calls = chunk_twins.twin_chunks("crush-e-walk")
+    feasible, turned = _lanes_turned_away(*calls[0][:2])
+    assert len(turned) >= 4 and turned == feasible
+    # and the plain run holds against the numpy core as the other twins do
+    _bit_for_bit(chunk_twins.TWINS["crush-e-walk"]())
+
+
+@pytest.mark.parametrize("case", ["chaos", "crush-jsq", "eviction-ties",
+                                  "po2-reactive", "tenants-crush-aladdin"])
+def test_widened_chunk_takes_the_same_decisions(case):
+    # chunk_twins.widen moves a chunk into more lanes (off) and more slots
+    # (free): the plain version then decides as before, so the card suite
+    # can run the kernel on states whose member lists outgrow shared memory
+    for args, kw, (fw, iw), _ in chunk_twins.twin_chunks(case):
+        W, B, Q = kw["W"], kw["B"], kw["Q"]
+        wide, kw2 = chunk_twins.widen(args, kw, W + 8, 2 * B)
+        f2, i2 = chunk_plain(*wide, **kw2)
+        want = unpack_state(fw[0].numpy(), iw[0].numpy(), W, B, Q)
+        got = unpack_state(f2[0].numpy(), i2[0].numpy(), W + 8, 2 * B, Q)
+        if want["ovf"]:             # the narrow chunk ran out of slots
+            continue
+        for name, v in want.items():
+            g = got[name]
+            if name in F_ROWS or name in I_ROWS:
+                g = g.reshape(W + 8, 2 * B)[:W, :B].ravel()
+            elif name in F_LANES or name in I_LANES:
+                g = g[:W]
+            np.testing.assert_array_equal(g, v, err_msg=name)
+
+
+def test_chunk_counters_need_the_kernel():
+    args, kw = order_edge_chunk()
+    stats = torch.zeros((1, len(STATS)), dtype=torch.int64)
+    with pytest.raises(ValueError, match="stats"):
+        chunk(*args, **kw, stats=stats)
 
 
 # ---- the plain version's units -----------------------------------------------
