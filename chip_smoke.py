@@ -175,13 +175,21 @@
    0.6, seed 5; its one-tenth slice (864 s at a 0.25 s heartbeat, ~10^4
    requests) on 24 workers, the kernel against the plain version and
    ``engine="jax"`` against ``engine="vectorized"`` request by request,
-   each timed. (c) ``optimize()`` on the slice (lo 16, hi 40, target
-   0.98) on both engines: the same fleet and attainment; evaluations,
-   wall seconds and each bracket launch's device ms (CUDA events around
-   the host side's calls). (d) The full day (8640 s at 0.02 s, ~10^5
-   requests, 24 workers) on the card in one launch: finished, attainment,
-   p99 TTFT, beats, wall and device ms, beats per second. The launch
-   counter is zeroed before (c) and read after (d).
+   each ``run()`` timed apart from the trace's generation
+   (``trace_generation_s``). (c) ``optimize()`` on the slice (lo 16, hi
+   40, target 0.98) on both engines: the same fleet and attainment;
+   evaluations, wall seconds and each bracket launch's device ms (CUDA
+   events around the host side's calls). (d) The full day (8640 s at 0.02
+   s, ~10^5 requests, 24 workers) on the card in one launch: finished,
+   attainment, p99 TTFT, beats, wall and device ms, the wall less the
+   device ms (``host_ms``), beats per second. The launch counter is
+   zeroed before (c) and read after (d). (e) The kernel's counters
+   (``whole_trace(..., stats=)``): ``[fastsim whole split]`` lines for
+   the slice, optimize's 40-worker launch and the day, each phase's ms a
+   launch at the SM clock nvidia-smi reads meanwhile and the counts,
+   beside the recorded split of the kernel before its redesign; a
+   counter that disagrees with the outputs (phases over the launch's
+   cycles, beats, placements) raises.
 21. The chunked core (``kernels/fastsim/csrc/chunk.cu``, ``chunked_phase``):
    every chunk of the pooled twins (``serving/chunk_twins.py``) and a
    hand-made chunk at constraint (c)'s edge through the kernel, states
@@ -2072,13 +2080,11 @@ def fastsim_phase(torch, smi):
     slice) and the launches of (c) and (d)."""
     import dataclasses
 
-    from repro_torch.configs import get_arch
     from repro_torch.core.perf_model import (DecodeModel, KVModel,
                                              PerfModel, PrefillModel)
     from repro_torch.core.request import Request
-    from repro_torch.core.slo import PAPER_SLOS, SLO
-    from repro_torch.core.worker_config import (A100_80G, WorkerSpec,
-                                                make_worker_spec)
+    from repro_torch.core.slo import SLO
+    from repro_torch.core.worker_config import WorkerSpec
     from repro_torch.kernels.fastsim import whole_trace
     from repro_torch.serving import api
     from repro_torch.serving import fastsim_jax as fj
@@ -2087,15 +2093,12 @@ def fastsim_phase(torch, smi):
     from repro_torch.serving.tenants import materialize_tenants
 
     cuda = torch.device("cuda")
+    spec, slo = scale_spec()
     grid_spec = WorkerSpec(
         perf=PerfModel(kv=KVModel(h=0.0, j=0.0),
                        prefill=PrefillModel(k1=2.2e-5, c1=8e-3),
                        decode=DecodeModel(k2=6e-6, c2=3.5e-4, c3=9e-3)),
         kv_capacity=1e18, max_batch=24, n_accelerators=2, name="eq-jax")
-    slo = PAPER_SLOS["llama2-70b"]
-    base = make_worker_spec(get_arch("llama2-70b"), A100_80G, slo, n_g=4)
-    spec = dataclasses.replace(base, max_batch=32, perf=PerfModel(
-        prefill=base.perf.prefill, decode=base.perf.decode))
 
     def small(trace, n, policy, s=SLO(2.0, 0.2), tenants=None):
         return api.Scenario(
@@ -2212,12 +2215,16 @@ def fastsim_phase(torch, smi):
     b_ms, b_by = bound(nbytes, {"fp64": 4.0 * l_out / B})
     slice_case.update(bound_ms=b_ms, bound_by=b_by)
     log(json.dumps(slice_case))
+    # the trace is generated before each run and timed apart: the run's
+    # wall is the engine's alone
     t0 = time.perf_counter()
     jx_t = sc_j.materialize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     jx = api.run(dataclasses.replace(sc_j, workload=jx_t))
     jax_wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
     vec_t = sc_j.materialize()
+    t0 = time.perf_counter()
     vec = api.run(dataclasses.replace(sc_j, workload=vec_t,
                                       engine="vectorized"))
     vec_wall = time.perf_counter() - t0
@@ -2232,6 +2239,7 @@ def fastsim_phase(torch, smi):
         "attainment": jx.attainment, "p99_ttft": jx.p99_ttft,
         "beats": jx.beats, "kernel_device_ms": kern_ms,
         "kernel_host_ms": host_ms, "plain_ms": plain_ms,
+        "trace_generation_s": gen_s,
         "jax_run_wall_s": jax_wall, "vectorized_run_wall_s": vec_wall,
         "largest_rel_diff": rel, "card": smi}))
 
@@ -2285,13 +2293,148 @@ def fastsim_phase(torch, smi):
         "attainment": day.attainment, "p99_ttft": day.p99_ttft,
         "beats": day.beats, "trace_generation_s": gen_s,
         "run_wall_ms": wall * 1e3, "device_ms": dev[0],
+        "host_ms": wall * 1e3 - dev[0],
         "beats_per_s_wall": day.beats / wall,
         "beats_per_s_device": day.beats / (dev[0] / 1e3),
         "launches_optimize_and_day": launches, "card": smi}))
     if launches < 2:
         raise AssertionError(f"[fastsim] the kernel ran {launches} times on "
                              "the main path")
+    # the kernel's split, with its counters on, after the main path's count
+    # was read: the slice, optimize's 40-worker launch and the day
+    for what, (case_sc, reps) in whole_split_cases(
+            api, wl, spec, slo, day=dataclasses.replace(
+                sc, workload=trace)).items():
+        args, st = _kernel_inputs(api, fj, case_sc, cuda)
+        split = whole_split(torch, args, st, reps, smi)
+        log(f"[fastsim whole split] {what}, before the redesign "
+            "(recorded): " + json.dumps(WHOLE_SPLIT_BEFORE.get(what)))
+        log(f"[fastsim whole split] {what}: " + json.dumps(split))
     return slice_case, launches
+
+
+def scale_spec():
+    """The `scale` scenario's worker and SLO: llama2-70b on 4 A100s, max
+    batch 32, inert KV, the paper's SLO."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.perf_model import PerfModel
+    from repro_torch.core.slo import PAPER_SLOS
+    from repro_torch.core.worker_config import A100_80G, make_worker_spec
+    slo = PAPER_SLOS["llama2-70b"]
+    base = make_worker_spec(get_arch("llama2-70b"), A100_80G, slo, n_g=4)
+    return dataclasses.replace(base, max_batch=32, perf=PerfModel(
+        prefill=base.perf.prefill, decode=base.perf.decode)), slo
+
+
+def whole_split_cases(api, wl, spec, slo, day=None) -> dict:
+    """The whole-trace kernel's split cases, each a scenario and the
+    launches to count: the `scale` slice, optimize's 40-worker launch on
+    it, and the day (``day``, or made here)."""
+    if day is None:
+        day = _scale_scenario(api, spec, slo, wl, *SCALE_DAY, SCALE_WORKERS,
+                              "jax")
+    return {
+        "slice": (_scale_scenario(api, spec, slo, wl, *SCALE_SLICE,
+                                  SCALE_WORKERS, "jax"), 10),
+        "optimize 40 workers": (_scale_scenario(
+            api, spec, slo, wl, *SCALE_SLICE, SCALE_OPT["hi"], "jax"), 10),
+        "day": (day, 1)}
+
+
+# the whole-trace kernel's phases (``WHOLE_STATS``' cycle counters, in the
+# order printed)
+WHOLE_PHASES = ("admit", "try", "commit", "advance", "aggregate", "barrier")
+# the split of the whole-trace kernel before its redesign (the kernel of
+# commit cc6f3cf with the counters added and nothing else changed), measured
+# by ``whole_split`` on an NVIDIA H100 80GB HBM3 at 700 W, SM clock 1980
+# MHz: ms a launch with the counters on, each phase's ms a launch, and the
+# counts of a launch
+WHOLE_SPLIT_BEFORE = {
+    "slice": {"ms_per_launch": 49.229, "phase_ms_per_launch": {
+        "admit": 1.9629, "try": 17.9625, "commit": 2.5967,
+        "advance": 11.8696, "aggregate": 8.9059,
+        "barrier": 5.5048},
+        "iterations": 3108, "beats": 3825, "tried": 10121,
+        "placed": 10121, "prefills": 8096,
+        "decode_segments": 44150,
+        "decode_iterations": 156483, "recounts": 8123,
+        "dominated": 0},
+    "optimize 40 workers": {"ms_per_launch": 61.571, "phase_ms_per_launch": {
+        "admit": 1.9524, "try": 25.6372, "commit": 2.5967,
+        "advance": 13.9079, "aggregate": 11.3533,
+        "barrier": 5.6948},
+        "iterations": 3108, "beats": 3825, "tried": 10121,
+        "placed": 10121, "prefills": 8096,
+        "decode_segments": 44150,
+        "decode_iterations": 156483, "recounts": 8123,
+        "dominated": 0},
+    "day": {"ms_per_launch": 984.1521, "phase_ms_per_launch": {
+        "admit": 37.2174, "try": 182.0768, "commit": 25.7513,
+        "advance": 395.3845, "aggregate": 168.9901,
+        "barrier": 162.7266},
+        "iterations": 87830, "beats": 436216, "tried": 100369,
+        "placed": 100369, "prefills": 92710,
+        "decode_segments": 1602994,
+        "decode_iterations": 1602994, "recounts": 89034,
+        "dominated": 0},
+}
+
+
+def whole_split(torch, args, st, reps: int, smi) -> dict:
+    """``reps`` launches of the whole-trace kernel on ``args`` with its
+    counters on (``stats``, ``kernels.fastsim.WHOLE_STATS``; the main path
+    passes none): each phase's share of the launches' cycles and its ms a
+    launch at the SM clock that nvidia-smi reads meanwhile, and the counts
+    of a launch. Raises if the counters disagree with the outputs or with
+    each other."""
+    from repro_torch.kernels.fastsim import WHOLE_STATS, whole_trace
+    C = int(args[3].numel())
+    stats = torch.zeros((C, len(WHOLE_STATS)), dtype=torch.int64,
+                        device=args[0].device)
+    with SmClock() as clock:
+        for _ in range(reps):
+            out = whole_trace(*args, **st, stats=stats)
+        torch.cuda.synchronize()
+    mhz = clock.median()
+    n = int(args[0].shape[0])
+    beats = out[4].reshape(C).cpu().tolist()
+    finished = (~out[3].reshape(C, n).isnan()).sum(dim=-1).cpu().tolist()
+    acc = dict.fromkeys(WHOLE_STATS, 0)
+    for c, row in enumerate(stats.cpu().tolist()):
+        st_c = dict(zip(WHOLE_STATS, row))
+        phases = sum(st_c[f"{k}_cycles"] for k in WHOLE_PHASES)
+        if not 0 <= phases <= st_c["cycles"] \
+                or st_c["beats"] != reps * beats[c] \
+                or st_c["placed"] > reps * n \
+                or (finished[c] == n and st_c["placed"] != reps * n) \
+                or st_c["dominated"] > st_c["tried"]:
+            raise AssertionError(f"[fastsim whole split] candidate {c}: "
+                                 f"counters {st_c} disagree (beats "
+                                 f"{beats[c]}, {finished[c]} of {n} "
+                                 f"finished, {reps} launches)")
+        for k, v in st_c.items():
+            acc[k] += v
+    launches = reps * C
+    cyc = acc["cycles"]
+
+    def ms(v):
+        return v / launches / (mhz * 1e3)
+
+    return {
+        "launches": reps, "candidates": C, "sm_clock_mhz": mhz,
+        "ms_per_launch": ms(cyc),
+        "phase_ms_per_launch": {k: ms(acc[f"{k}_cycles"])
+                                for k in WHOLE_PHASES},
+        "share": {k: acc[f"{k}_cycles"] / cyc for k in WHOLE_PHASES},
+        **{k: acc[k] // reps for k in (
+            "iterations", "beats", "tried", "placed", "prefills",
+            "decode_segments", "decode_iterations", "recounts",
+            "dominated")},
+        "us_per_iteration": ms(cyc) * 1e3 / max(acc["iterations"]
+                                                 / launches, 1),
+        "card": smi}
 
 
 # The reference's chunked-core cells (benchmarks/bench_cluster_sim.py:

@@ -36,15 +36,22 @@ int ssd_scan_launch(const void* x, const void* dt, const void* A,
                     int N, int Q, int bf16, void* stream);
 
 // The Scenario API's whole-trace simulation core (fastsim/csrc): one CTA
-// per candidate fleet size; `par` is (8, W) float64 per-worker parameters
+// per candidate fleet size; `par` is (8, W) float64 per-worker parameters;
+// `scratch` (C, whole_trace_scratch_bytes(n, W, B)) bytes; `stats` (C,
+// ops.py's len(WHOLE_STATS)) int64, or null
 int whole_trace_launch(const void* arrival, const void* l_in,
                        const void* l_real, const void* rank,
                        const void* ttft_r, const void* atgt_r,
                        const void* n_active, const void* par, void* out_lo,
-                       void* out_f, void* beats, void* queue, int n, int W,
-                       int B, int C, double hb, double horizon, double theta,
-                       double gamma, double ttft, double atgt, int aladdin,
-                       int edf, int tagged, void* stream);
+                       void* out_f, void* beats, void* scratch, void* stats,
+                       int n, int W, int B, int C, double hb, double horizon,
+                       double theta, double gamma, double ttft, double atgt,
+                       int aladdin, int edf, int tagged, void* stream);
+
+// The global scratch a whole-trace launch needs for each candidate: the
+// queue's two buffers of keys (16 B a request), then the lane state that
+// does not fit in shared memory; 0 for arguments the kernel refuses
+long long whole_trace_scratch_bytes(int n, int W, int B);
 
 // The Scenario API's chunked simulation core (fastsim/csrc): one CTA per
 // candidate; `fin`/`iin` are each candidate's packed state (float64 and

@@ -119,18 +119,19 @@ PyObject* ssd_scan(PyObject*, PyObject* const* a, Py_ssize_t n) {
 }
 
 // whole_trace(arrival, l_in, l_real, rank, ttft_r, atgt_r, n_active, par,
-//             out_lo, out_f, beats, queue, n, W, B, C, hb, horizon, theta,
-//             gamma, ttft, atgt, aladdin, edf, tagged, stream)
+//             out_lo, out_f, beats, scratch, stats or None, n, W, B, C, hb,
+//             horizon, theta, gamma, ttft, atgt, aladdin, edf, tagged,
+//             stream)
 PyObject* whole_trace(PyObject*, PyObject* const* a, Py_ssize_t n) {
   const char* name = "whole_trace";
-  const Args in(a, n, "ppppppppppppiiiiddddddiiip", name);
+  const Args in(a, n, "pppppppppppppiiiiddddddiiip", name);
   if (!in.ok) return nullptr;
   return result(whole_trace_launch(
                     in.p(0), in.p(1), in.p(2), in.p(3), in.p(4), in.p(5),
                     in.p(6), in.p(7), in.p(8), in.p(9), in.p(10), in.p(11),
-                    in.i(12), in.i(13), in.i(14), in.i(15), in.d(16),
+                    in.p(12), in.i(13), in.i(14), in.i(15), in.i(16),
                     in.d(17), in.d(18), in.d(19), in.d(20), in.d(21),
-                    in.i(22), in.i(23), in.i(24), in.p(25)),
+                    in.d(22), in.i(23), in.i(24), in.i(25), in.p(26)),
                 name);
 }
 
@@ -159,6 +160,15 @@ PyObject* fastsim_chunk_scratch(PyObject*, PyObject* const* a,
   return PyLong_FromLongLong(fastsim_chunk_scratch_bytes(in.i(0), in.i(1)));
 }
 
+// whole_trace_scratch(n, W, B): the bytes of global scratch a whole-trace
+// launch needs for each candidate
+PyObject* whole_trace_scratch(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  const Args in(a, n, "iii", "whole_trace_scratch");
+  if (!in.ok) return nullptr;
+  return PyLong_FromLongLong(
+      whole_trace_scratch_bytes(in.i(0), in.i(1), in.i(2)));
+}
+
 template <PyObject* (*F)(PyObject*, PyObject* const*, Py_ssize_t)>
 PyCFunction fastcall() {
   return reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(F));
@@ -176,6 +186,9 @@ PyMethodDef methods[] = {
     {"whole_trace", fastcall<whole_trace>(), METH_FASTCALL,
      "Launch the whole-trace simulation core; raises RuntimeError on a "
      "CUDA error."},
+    {"whole_trace_scratch", fastcall<whole_trace_scratch>(), METH_FASTCALL,
+     "The bytes of global scratch a whole-trace launch needs for each "
+     "candidate."},
     {"fastsim_chunk", fastcall<fastsim_chunk>(), METH_FASTCALL,
      "Launch the chunked simulation core; raises RuntimeError on a CUDA "
      "error."},

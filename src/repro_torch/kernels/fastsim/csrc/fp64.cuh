@@ -1,10 +1,9 @@
 // Arithmetic shared by the Scenario API's simulation kernels
 // (whole_trace.cu, chunk.cu): fp64 operations that nvcc never contracts
 // into a fused multiply-add, Python's min/max on numbers that are never
-// NaN, CPython's math.hypot, warp reductions and a warp's sum in key
-// order. The numpy core (serving/fastsim.py) computes in IEEE doubles
-// rounded after every operation; these keep the kernels bit for bit equal
-// to it.
+// NaN, CPython's math.hypot and warp reductions. The numpy core
+// (serving/fastsim.py) computes in IEEE doubles rounded after every
+// operation; these keep the kernels bit for bit equal to it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,12 +37,24 @@ __device__ __forceinline__ double max0(double a) { return 0.0 > a ? 0.0 : a; }
 // double-length values into a compensated sum, take the square root and
 // apply one correction. The fused multiply-adds here give exact low parts
 // of products, which is what CPython's double-length multiply computes.
+// frexp's exponent e comes from mx's exponent bits, and the scale 2^-e and
+// its inverse 2^e are built from bits: both are exact powers of two, so
+// scaling by either (a multiply where CPython divides) rounds as the
+// division does. A subnormal or extreme mx takes frexp and ldexp.
 __device__ inline double py_hypot(double a, double b) {
   const double mx = a < b ? b : a;
   if (mx == 0.0) return mx;
-  int e;
-  frexp(mx, &e);
-  const double scale = ldexp(1.0, -e);
+  const int be =
+      static_cast<int>((__double_as_longlong(mx) >> 52) & 0x7ff);
+  double scale, inv = 0.0;
+  if (be >= 1 && be <= 2044) {  // e = be - 1022
+    scale = __longlong_as_double(static_cast<long long>(2045 - be) << 52);
+    inv = __longlong_as_double(static_cast<long long>(be + 1) << 52);
+  } else {
+    int e;
+    frexp(mx, &e);
+    scale = ldexp(1.0, -e);
+  }
   double csum = 1.0, f1 = 0.0, f2 = 0.0;
   const double xs[2] = {mul(a, scale), mul(b, scale)};
 #pragma unroll
@@ -63,7 +74,7 @@ __device__ inline double py_hypot(double a, double b) {
   csum = hi;
   f1 = add(f1, pl);
   h = add(h, dvd(add(sub(csum, 1.0), add(f1, f2)), mul(2.0, h)));
-  return dvd(h, scale);
+  return inv != 0.0 ? mul(h, inv) : dvd(h, scale);
 }
 
 __device__ __forceinline__ long long warp_sum(long long v) {
@@ -83,43 +94,6 @@ __device__ __forceinline__ double warp_min(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = pmin(v, __shfl_xor_sync(kFull, v, o));
   return v;
-}
-__device__ __forceinline__ double warp_max(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const double x = __shfl_xor_sync(kFull, v, o);
-    v = x > v ? x : v;
-  }
-  return v;
-}
-
-// The left-to-right sum of a warp's items in ascending key order, the
-// numpy core's order for a float sum (warp-wide): item s of [0, m) has the
-// unique key key(s), or a negative one to leave it out. Each lane ranks its
-// items by counting the smaller keys and writes their values at their ranks
-// in `scratch` (m entries, this warp's own); then every lane adds them up
-// alike, so the dependent chain is the adds alone.
-template <class Key, class Val>
-__device__ double ordered_sum(int m, int lane, double* scratch, Key key,
-                              Val val) {
-  long long cnt = 0;
-  for (int s = lane; s < m; s += 32) {
-    const long long k = key(s);
-    if (k < 0) continue;
-    int r = 0;
-    for (int t = 0; t < m; ++t) {
-      const long long kt = key(t);
-      r += kt >= 0 && kt < k;
-    }
-    scratch[r] = val(s);
-    ++cnt;
-  }
-  cnt = warp_sum(cnt);
-  __syncwarp();
-  double sum = 0.0;
-  for (long long r = 0; r < cnt; ++r) sum = add(sum, scratch[r]);
-  __syncwarp();
-  return sum;
 }
 
 }  // namespace fastsim

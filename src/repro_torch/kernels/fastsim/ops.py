@@ -64,9 +64,14 @@ _POLICIES = ("aladdin", "jsq")
 
 def _simulate(arr, l_in, l_real, na, rank, ttft_r, atgt_r, *, hb, horizon,
               theta, gamma, ttft, atgt, policy, coefs, maxb, maxb_norm,
-              cmax_norm, edf, tagged):
+              cmax_norm, edf, tagged, passes=None):
     """One candidate (``na`` workers alive of ``len(maxb)``) over the whole
-    trace; the lists in, Python scalars throughout."""
+    trace; the lists in, Python scalars throughout. ``passes`` is
+    instrumentation for the tests alone (the check of the kernel's pruning
+    rule in tests/test_torch_fastsim.py); nothing else passes it. A list,
+    it receives each placement pass's tries in order: (weight l_in + gamma
+    * l_real, l_in, whether the request carries its own ATGT budget,
+    whether it was placed)."""
     n, W = len(arr), len(maxb)
     B = max(max(maxb), 1)
     K1, C1, K2, C2, C3 = coefs
@@ -131,6 +136,7 @@ def _simulate(arr, l_in, l_real, na, rank, ttft_r, atgt_r, *, hb, horizon,
                 d_budget[w] = theta * max(slack, 0.0)
                 d_budget_t[w] = theta * max(slack_t, 0.0)
         keep = []
+        tries = [] if passes is not None else None
         for rid in q:
             liv, lrv = l_in[rid], l_real[rid]
             v = liv + gamma * lrv
@@ -163,6 +169,9 @@ def _simulate(arr, l_in, l_real, na, rank, ttft_r, atgt_r, *, hb, horizon,
                 elif best < 0 or cnt[w] < best_key:
                     # jsq: the smallest batch, ties to the lowest index
                     best, best_key = w, cnt[w]
+            if tries is not None:
+                tries.append((v, liv, tag_a and atgt_r[rid] != _INF,
+                              best >= 0))
             if best < 0:
                 keep.append(rid)        # stays queued, FIFO order kept
                 continue
@@ -180,6 +189,8 @@ def _simulate(arr, l_in, l_real, na, rank, ttft_r, atgt_r, *, hb, horizon,
             if tag_a:
                 amin[w] = min(amin[w], atgt_r[rid])
                 tmin[w] = min(tmin[w], ttft_r[rid])
+        if tries is not None:
+            passes.append(tries)
         return keep
 
     def segments(w, t_end):
@@ -376,6 +387,36 @@ def _check(arrival, l_in, l_real, n_active, rank_r, ttft_r, atgt_r) -> None:
                          "tensor on the trace's device")
 
 
+# The whole-trace kernel's optional counters, one row of int64 per
+# candidate (``whole_trace``'s ``stats``): SM cycles on the CTA's thread 0
+# for the whole launch and for each phase of a loop iteration (admission
+# and the EDF merge; the placement pass's tries, i.e. its rounds over the
+# lanes, and its commits; the lanes' advance and their aggregates, each the
+# slowest warp's; the barriers and the beat bookkeeping); loop iterations;
+# beats; queued requests the placement pass tried; requests placed; the
+# lanes' prefill and decode segments and decode iterations; recounts of a
+# lane's weighted context; and the tries that an untagged request no larger
+# (weighted context, prompt) than one that found no lane earlier in the
+# pass settled without a round.
+WHOLE_STATS = ("cycles", "admit_cycles", "try_cycles", "commit_cycles",
+               "advance_cycles", "aggregate_cycles", "barrier_cycles",
+               "iterations", "beats", "tried", "placed", "prefills",
+               "decode_segments", "decode_iterations", "recounts",
+               "dominated")
+
+
+def whole_trace_scratch_bytes(n: int, W: int, B: int) -> int:
+    """The global scratch a whole-trace launch needs for each candidate:
+    the queue's two buffers of keys (16 B a request), then the lane state
+    (members and tables, or lanes too) that does not fit in shared memory.
+    It asks the built library, so it needs the card."""
+    nbytes = int(_build.module().whole_trace_scratch(n, W, B))
+    if nbytes < 16 * n:
+        raise ValueError(f"whole_trace: {W} workers x max batch {B} exceed "
+                         "the kernel's int32 offsets")
+    return nbytes
+
+
 def whole_trace(arrival: torch.Tensor, l_in: torch.Tensor,
                 l_real: torch.Tensor, n_active, rank_r: torch.Tensor,
                 ttft_r: torch.Tensor, atgt_r: torch.Tensor, *, hb: float,
@@ -383,18 +424,23 @@ def whole_trace(arrival: torch.Tensor, l_in: torch.Tensor,
                 atgt: float, policy: str, coefs: Sequence[Sequence[float]],
                 maxb: Sequence[int], maxb_norm: Sequence[float],
                 cmax_norm: Sequence[float], edf: bool = False,
-                tagged: bool = False) -> Tuple[torch.Tensor, ...]:
+                tagged: bool = False, stats: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, ...]:
     """See ``whole_trace_plain``. On CUDA: one launch of the kernel for all
-    candidates and one synchronisation, when the outputs are read."""
+    candidates and one synchronisation, when the outputs are read.
+    ``stats``, a (C, len(WHOLE_STATS)) int64 tensor on the card, receives
+    the kernel's counters (``WHOLE_STATS``): the launch adds to it, so one
+    tensor can gather several launches. The plain version has none."""
     kw = dict(hb=hb, horizon=horizon, theta=theta, gamma=gamma, ttft=ttft,
               atgt=atgt, policy=policy, coefs=coefs, maxb=maxb,
               maxb_norm=maxb_norm, cmax_norm=cmax_norm, edf=edf,
               tagged=tagged)
     if not arrival.is_cuda:
-        if arrival.device.type == "cpu":
+        if arrival.device.type == "cpu" and stats is None:
             return whole_trace_plain(arrival, l_in, l_real, n_active,
                                      rank_r, ttft_r, atgt_r, **kw)
-        raise ValueError(f"whole_trace: unsupported device {arrival.device}")
+        raise ValueError(f"whole_trace: unsupported device {arrival.device}"
+                         ", or stats without the kernel")
     n = int(arrival.shape[0])
     W = _statics_ok(n, coefs, maxb, maxb_norm, cmax_norm, policy)
     batched = torch.is_tensor(n_active) and n_active.dim() == 1
@@ -402,6 +448,13 @@ def whole_trace(arrival: torch.Tensor, l_in: torch.Tensor,
         [int(n_active)], dtype=torch.int64, device=arrival.device))
     _check(arrival, l_in, l_real, cands, rank_r, ttft_r, atgt_r)
     C = int(cands.shape[0])
+    if stats is not None and (
+            stats.dtype != torch.int64 or stats.shape != (C, len(WHOLE_STATS))
+            or stats.device != arrival.device or not stats.is_contiguous()):
+        raise ValueError(f"whole_trace: stats must be a contiguous (C, "
+                         f"{len(WHOLE_STATS)}) int64 tensor on "
+                         f"{arrival.device}; got {tuple(stats.shape)} "
+                         f"{stats.dtype} on {stats.device}")
     B = max(max(int(x) for x in maxb), 1)
     dev = arrival.device
     # per-worker parameters, one row each: k1, c1, k2, c2, c3, the two
@@ -414,12 +467,16 @@ def whole_trace(arrival: torch.Tensor, l_in: torch.Tensor,
     out_lo = torch.empty((C, n), dtype=torch.int64, device=dev)
     out_f = torch.empty((3, C, n), dtype=torch.float64, device=dev)
     beats = torch.empty((C,), dtype=torch.int64, device=dev)
-    queue = torch.empty((C, n), dtype=torch.int32, device=dev)
+    # the queue's two buffers of keys (the EDF merge writes the other), then
+    # the lane state that shared memory does not hold
+    scratch = torch.empty((C, whole_trace_scratch_bytes(n, W, B)),
+                          dtype=torch.uint8, device=dev)
     _build.module().whole_trace(
         arrival.data_ptr(), l_in.data_ptr(), l_real.data_ptr(),
         rank_r.data_ptr(), ttft_r.data_ptr(), atgt_r.data_ptr(),
         cands.data_ptr(), par.data_ptr(), out_lo.data_ptr(),
-        out_f.data_ptr(), beats.data_ptr(), queue.data_ptr(), n, W, B, C,
+        out_f.data_ptr(), beats.data_ptr(), scratch.data_ptr(),
+        None if stats is None else stats.data_ptr(), n, W, B, C,
         float(hb), float(horizon), float(theta), float(gamma), float(ttft),
         float(atgt), policy == "aladdin", bool(edf), bool(tagged),
         torch._C._cuda_getCurrentRawStream(arrival.get_device()))
@@ -976,7 +1033,7 @@ def chunk(fstate: torch.Tensor, istate: torch.Tensor, arrival: torch.Tensor,
 
 chunk.launches = 0
 
-__all__ = ["BIG", "OVF_QUEUE", "OVF_SLOTS", "SCALARS", "STATS", "chunk",
-           "chunk_layout", "chunk_plain", "chunk_scratch_bytes",
-           "pack_state", "po2_draw", "unpack_state", "whole_trace",
-           "whole_trace_plain"]
+__all__ = ["BIG", "OVF_QUEUE", "OVF_SLOTS", "SCALARS", "STATS",
+           "WHOLE_STATS", "chunk", "chunk_layout", "chunk_plain",
+           "chunk_scratch_bytes", "pack_state", "po2_draw", "unpack_state",
+           "whole_trace", "whole_trace_plain", "whole_trace_scratch_bytes"]

@@ -114,7 +114,7 @@ def _statics(scenario, specs, horizon: float, edf: bool,
 def _kernel_inputs(scenario, specs, ordered, arrival, l_in, l_real,
                    n_active, device: torch.device, edf: bool):
     """``whole_trace``'s tensors on ``device`` and its keyword arguments."""
-    rank_r, ttft_r, atgt_r, tagged = _tenant_arrays(ordered)
+    rank_r, ttft_r, atgt_r, tagged = _tenant_arrays(ordered, arrival)
     horizon = float(arrival[-1]) + DEFAULT_TAIL
     f64 = dict(dtype=torch.float64, device=device)
     i64 = dict(dtype=torch.int64, device=device)
@@ -133,29 +133,38 @@ def _simulate(*inputs, **kw):
 
 
 def _trace_arrays(trace):
-    order = sorted(range(len(trace)), key=lambda i: trace[i].arrival)
-    ordered = [trace[i] for i in order]
-    arrival = np.array([r.arrival for r in ordered])
+    """The trace in arrival order (a stable sort: ties keep the trace's
+    order) and its arrival, l_in and l_real arrays. Each field is read once
+    a request, and a trace already in order is not sorted."""
+    arrival = np.array([r.arrival for r in trace], dtype=np.float64)
+    if (arrival[1:] >= arrival[:-1]).all():
+        ordered = list(trace)
+    else:
+        order = np.argsort(arrival, kind="stable")
+        ordered = [trace[i] for i in order.tolist()]
+        arrival = arrival[order]
     l_in = np.array([r.l_in for r in ordered], dtype=np.int64)
     l_real = np.array([r.l_real for r in ordered], dtype=np.int64)
     return ordered, arrival, l_in, l_real
 
 
-def _tenant_arrays(ordered):
+def _tenant_arrays(ordered, arrival):
     """Per-request multi-tenant operands for the kernels: the total queue
     rank (priority desc, deadline asc, arrival index — the order a stable
     reference sort converges to; after a requeue an exact-key tie can
     differ, which the tolerance pins absorb) and the RAW per-request SLO
     budgets (``inf`` = untagged; the kernels resolve the fallback to the
     planning SLO in-branch, like the reference). ``tagged`` mirrors the
-    reference's trace-level gate (any finite ATGT budget)."""
+    reference's trace-level gate (any finite ATGT budget). ``arrival``, the
+    requests' arrival times (``_trace_arrays``), gives the deadlines
+    (``Request.deadline``: arrival + TTFT budget, the same IEEE add)."""
     n = len(ordered)
-    prio = np.array([int(r.priority) for r in ordered], dtype=np.int64)
-    dl = np.array([r.deadline for r in ordered])
+    prio = np.array([r.priority for r in ordered], dtype=np.int64)
+    ttft_r = np.array([r.slo_ttft for r in ordered], dtype=np.float64)
+    atgt_r = np.array([r.slo_atgt for r in ordered], dtype=np.float64)
     rank = np.empty(n, dtype=np.int64)
-    rank[np.lexsort((dl, -prio))] = np.arange(n, dtype=np.int64)
-    ttft_r = np.array([r.slo_ttft for r in ordered])
-    atgt_r = np.array([r.slo_atgt for r in ordered])
+    rank[np.lexsort((arrival + ttft_r, -prio))] = np.arange(n,
+                                                            dtype=np.int64)
     tagged = bool(np.isfinite(atgt_r).any()) if n else False
     return rank, ttft_r, atgt_r, tagged
 
@@ -258,7 +267,7 @@ class _PooledSim:
             _trace_arrays(trace)
         self.n = len(self.trace)
         self.rank_r, self.ttft_r, self.atgt_r, self.tagged = \
-            _tenant_arrays(self.trace)
+            _tenant_arrays(self.trace, self.arrival)
         self.edf = (scenario.tenants is not None
                     and len(scenario.tenants) > 1 and self.n > 0)
         self._trace_dev = None
@@ -803,16 +812,19 @@ def run_colocated_jax(scenario, seed: Optional[int] = None,
     l_out, tds, t_first, t_fin, beats = _simulate(
         scenario, specs, ordered, arrival, l_in, l_real, len(specs), dev,
         edf=multi)
-    for pos, r in enumerate(ordered):
-        r.l_pred = int(l_real[pos])
-        r.l_out = int(l_out[pos])
-        r.t_decode_spent = float(tds[pos])
-        tf = t_first[pos]
-        r.t_first_token = None if math.isnan(tf) else float(tf)
-        te = t_fin[pos]
-        if not math.isnan(te):
-            r.t_finish = float(te)
-            r.state = ReqState.FINISHED
+    # the outcome as Python ints and floats, column by column (a NaN first
+    # token is None; a NaN finish leaves the request as it was)
+    finished = ReqState.FINISHED
+    for r, lr, lo, td, tf, te in zip(ordered, l_real.tolist(),
+                                     l_out.tolist(), tds.tolist(),
+                                     t_first.tolist(), t_fin.tolist()):
+        r.l_pred = lr
+        r.l_out = lo
+        r.t_decode_spent = td
+        r.t_first_token = None if tf != tf else tf
+        if te == te:
+            r.t_finish = te
+            r.state = finished
     rep = _report_from_arrays(scenario, specs, len(specs), arrival, l_real,
                               l_out, tds, t_first, t_fin)
     rep.beats = int(beats)      # benchmark side channel (not in row())

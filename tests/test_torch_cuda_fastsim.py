@@ -6,11 +6,20 @@ plain version on the same inputs over the traces of
 sort reorders every beat, a heterogeneous fleet (per-worker coefficients
 and max batches), a llama2-70b fleet at a 20 ms heartbeat, and a
 40-worker x 32-slot bracket whose lane state needs more than 48 KB of
-shared memory. Integers are held exactly, floats within ``rel=1e-12``
-(the reference grid's per-request tolerance; the kernel is built to agree
-bit for bit). Then ``run_candidate_batch`` on the card against single
-runs, and ``optimize(engine="jax")`` against ``optimize(engine=
-"vectorized")``.
+shared memory, and an undersized llama2-70b fleet at the diurnal peak
+whose long backlog the placement pass prunes (and the same with a
+negative decode slope, which turns the pruning off, and a jsq fleet at
+max batch 64, whose lanes hold more than a warp's members), and 128
+workers x 32 slots and a jsq fleet of 64 x 64, whose members do not fit
+in shared memory and live in the global scratch, and 1,300 workers at max
+batch 1, whose lanes do not fit either. Integers are
+held exactly, floats within ``rel=1e-12`` (the reference grid's
+per-request tolerance; the kernel is built to agree bit for bit). Then
+``run_candidate_batch`` on the card against single runs, and
+``optimize(engine="jax")`` against ``optimize(engine="vectorized")``.
+The kernel's counters (``stats``) change no result and must add up:
+phases within the launch's cycles, beats as the kernel counts them,
+placements within the requests.
 
 The chunked core (``kernels/fastsim/csrc/chunk.cu``) is held against its
 plain version chunk by chunk: each pooled twin of
@@ -33,6 +42,7 @@ use); without a card they skip. On the GPU machine:
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_fastsim.py
 """
 import dataclasses
+import math
 
 import pytest
 
@@ -45,9 +55,10 @@ from repro_torch.core.request import Request  # noqa: E402
 from repro_torch.core.slo import PAPER_SLOS, SLO  # noqa: E402
 from repro_torch.core.worker_config import (A100_80G,  # noqa: E402
                                             WorkerSpec, make_worker_spec)
-from repro_torch.kernels.fastsim import (STATS, chunk,  # noqa: E402
-                                         chunk_layout, chunk_scratch_bytes,
-                                         whole_trace)
+from repro_torch.kernels.fastsim import (STATS, WHOLE_STATS,  # noqa: E402
+                                         chunk, chunk_layout,
+                                         chunk_scratch_bytes, whole_trace,
+                                         whole_trace_scratch_bytes)
 from repro_torch.serving import api, chunk_twins, fastsim_jax  # noqa: E402
 from repro_torch.serving.workload import (WorkloadConfig,  # noqa: E402
                                           clone_trace, diurnal_trace,
@@ -91,6 +102,26 @@ def _diurnal(duration, seed=5):
         mean_rate=11.574, duration=duration, seed=seed, in_mu=5.0,
         in_sigma=1.1, out_mu=5.3, out_sigma=0.9), amplitude=0.6,
         period=duration)
+
+
+def _backlog_trace():
+    # the `scale` trace's workload at its diurnal peak (11.574 req/s,
+    # amplitude 0.6: ~18.5 req/s) for 20 s, far more than 2-3 llama2-70b
+    # workers serve: the backlog grows to hundreds of untagged requests
+    return diurnal_trace(WorkloadConfig(
+        mean_rate=11.574, duration=20.0, seed=7, in_mu=5.0, in_sigma=1.1,
+        out_mu=5.3, out_sigma=0.9), amplitude=0.6, period=8640.0,
+        phase=math.pi / 2)
+
+
+def _negative_c2_spec() -> WorkerSpec:
+    # a decode time that falls with the batch: constraint (b) loosens as a
+    # lane fills, so the placement pass may not prune
+    spec = _llama70b_spec()
+    d = spec.perf.decode
+    return dataclasses.replace(spec, perf=PerfModel(
+        prefill=spec.perf.prefill,
+        decode=DecodeModel(k2=d.k2, c2=-1e-6, c3=d.c3)))
 
 
 def _scenario(trace, spec, n, policy, hb=0.25, slo=SLO(2.0, 0.2),
@@ -143,7 +174,36 @@ CASES = {
     "w40-bracket": lambda: (_scenario(
         _diurnal(43.2, seed=6), _llama70b_spec(), 40, "aladdin",
         slo=PAPER_SLOS["llama2-70b"]), [2, 3, 40]),
+    "backlog-llama70b": lambda: (_scenario(
+        _backlog_trace(), _llama70b_spec(), 3, "aladdin",
+        slo=PAPER_SLOS["llama2-70b"]), [2, 3]),
+    "backlog-negative-c2": lambda: (_scenario(
+        _backlog_trace(), _negative_c2_spec(), 3, "aladdin",
+        slo=PAPER_SLOS["llama2-70b"]), [2, 3]),
+    # jsq fills lanes to their max batch: 64 members, two chunks of a warp
+    "backlog-jsq-b64": lambda: (_scenario(
+        _backlog_trace(), dataclasses.replace(_llama70b_spec(),
+                                              max_batch=64), 3, "jsq",
+        slo=PAPER_SLOS["llama2-70b"]), [2, 3]),
+    # lane state past shared memory: the members and tables go to the
+    # global scratch (128 x 32 slots, best fit; 64 x 64, jsq over all)
+    "w128-b32": lambda: (_scenario(
+        _backlog_trace(), _llama70b_spec(), 128, "aladdin",
+        slo=PAPER_SLOS["llama2-70b"]), [3, 128]),
+    "w64-b64-jsq": lambda: (_scenario(
+        _backlog_trace(), dataclasses.replace(_llama70b_spec(),
+                                              max_batch=64), 64, "jsq",
+        slo=PAPER_SLOS["llama2-70b"]), [2, 64]),
+    # so many lanes that not even they fit in shared memory: all of the
+    # lane state in the global scratch
+    "w1300-b1": lambda: (_scenario(
+        _backlog_trace(), dataclasses.replace(_llama70b_spec(), max_batch=1),
+        1300, "aladdin", slo=PAPER_SLOS["llama2-70b"]), [1300]),
 }
+
+# the cases whose lane state lives in the global scratch; the rest fit in
+# shared memory, the 40 x 32 bracket among them
+GLOBAL_LANE_STATE = ("w128-b32", "w64-b64-jsq", "w1300-b1")
 
 
 def _inputs(case, device):
@@ -165,6 +225,10 @@ def test_kernel_matches_plain_version(card, case):
     got = whole_trace(*(a.to(card) for a in args), **statics)
     torch.cuda.synchronize()
     assert whole_trace.launches == before + 1
+    n, maxb = int(args[0].shape[0]), statics["maxb"]
+    queue = 16 * n                      # the queue's two buffers of keys
+    in_global = whole_trace_scratch_bytes(n, len(maxb), max(maxb)) > queue
+    assert in_global == (case in GLOBAL_LANE_STATE)
     for name, g, w in zip(("l_out", "t_decode_spent", "t_first_token",
                            "t_finish", "beats"), got, want):
         g = g.cpu()
@@ -174,6 +238,45 @@ def test_kernel_matches_plain_version(card, case):
         else:
             torch.testing.assert_close(g, w, rtol=1e-12, atol=0.0,
                                        equal_nan=True, msg=name)
+
+
+WHOLE_PHASES = ("admit", "try", "commit", "advance", "aggregate",
+                "barrier")
+
+
+@pytest.mark.parametrize("case", ["backlog-llama70b", "backlog-negative-c2",
+                                  "backlog-jsq-b64", "grid-jsq",
+                                  "tenants-edf-aladdin", "w40-bracket",
+                                  "w128-b32", "w64-b64-jsq", "w1300-b1"])
+def test_whole_trace_counters(card, case):
+    args, statics = _inputs(case, card)
+    want = whole_trace(*args, **statics)
+    C, n = int(args[3].numel()), int(args[0].shape[0])
+    stats = torch.zeros((C, len(WHOLE_STATS)), dtype=torch.int64,
+                        device=card)
+    got = whole_trace(*args, **statics, stats=stats)
+    for g, w in zip(got, want):         # the counters change no result
+        assert torch.equal(g.nan_to_num(-1.0), w.nan_to_num(-1.0))
+    beats = got[4].reshape(C).tolist()
+    done = (~got[3].reshape(C, n).isnan()).sum(dim=-1).tolist()
+    rows = [dict(zip(WHOLE_STATS, r)) for r in stats.tolist()]
+    for st, b, d in zip(rows, beats, done):
+        phases = sum(st[f"{k}_cycles"] for k in WHOLE_PHASES)
+        assert 0 < phases <= st["cycles"]
+        assert st["beats"] == b
+        assert 0 < st["iterations"] <= st["beats"]
+        assert st["placed"] <= n
+        if d == n:
+            assert st["placed"] == n
+        assert st["placed"] + st["dominated"] <= st["tried"]
+        assert st["decode_segments"] <= st["decode_iterations"]
+        assert st["prefills"] <= st["placed"]
+    if case == "backlog-llama70b":      # the pruning decides tries
+        assert all(st["dominated"] > 0 for st in rows)
+    if case == "backlog-negative-c2":   # the guard turns it off
+        assert all(st["dominated"] == 0 for st in rows)
+    if case == "backlog-jsq-b64":       # full lanes settle the rest
+        assert all(st["dominated"] > 0 for st in rows)
 
 
 def test_candidate_batch_matches_singles(card):

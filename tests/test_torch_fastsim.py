@@ -36,18 +36,19 @@ from repro_torch import serving as port_serving  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.perf_model import (DecodeModel, KVModel,  # noqa: E402
                                          PerfModel, PrefillModel)
-from repro_torch.core.request import Request  # noqa: E402
+from repro_torch.core.request import ReqState, Request  # noqa: E402
 from repro_torch.core.slo import PAPER_SLOS, SLO  # noqa: E402
 from repro_torch.core.worker_config import (A100_80G,  # noqa: E402
                                             WorkerSpec, make_worker_spec,
                                             spot_variant)
-from repro_torch.kernels.fastsim import (whole_trace,  # noqa: E402
-                                         whole_trace_plain)
+from repro_torch.kernels.fastsim import (WHOLE_STATS,  # noqa: E402
+                                         whole_trace, whole_trace_plain)
+from repro_torch.kernels.fastsim import ops as fastsim_ops  # noqa: E402
 from repro_torch.serving import api, fastsim_jax  # noqa: E402
 from repro_torch.serving.tenants import materialize_tenants  # noqa: E402
 from repro_torch.serving.workload import (PreemptionEvent,  # noqa: E402
                                           WorkloadConfig, clone_trace,
-                                          generate_trace)
+                                          diurnal_trace, generate_trace)
 
 SLO_GRID = SLO(ttft=2.0, atgt=0.2)
 
@@ -464,6 +465,134 @@ def test_wrapper_refuses_other_devices_and_bad_statics():
     with pytest.raises(ValueError, match="empty"):
         whole_trace_plain(arrival[:0], l_in[:0], l_real[:0], 1, rank[:0],
                           ttft_r[:0], atgt_r[:0], **_statics())
+
+
+def test_wrapper_counters_need_the_kernel():
+    # the plain version has no counters: stats on a CPU tensor raise
+    arrival, l_in, l_real, rank, ttft_r, atgt_r = _trace_tensors()
+    stats = torch.zeros((1, len(WHOLE_STATS)), dtype=torch.int64)
+    with pytest.raises(ValueError, match="stats"):
+        whole_trace(arrival, l_in, l_real, 1, rank, ttft_r, atgt_r,
+                    **_statics(), stats=stats)
+
+
+def test_writeback_keeps_the_request_fields():
+    # a prompt whose prefill alone exceeds the TTFT budget is never placed
+    # (aladdin's constraint (c)); an output of 100,000 tokens outlasts the
+    # horizon. The Request fields after the run are the kernel's outputs
+    # as Python ints and floats, None for a NaN first token, and a finish
+    # (and FINISHED) only where the kernel finished the request.
+    trace = _grid_trace() + [
+        Request(l_in=200000, l_pred=0, l_real=10, arrival=1.0),
+        Request(l_in=50, l_pred=0, l_real=100000, arrival=2.0)]
+    pools = [api.PoolSpec(_jax_spec(), 2)]
+    sc = _scenario(clone_trace(trace), pools, "aladdin", "jax", gamma=0.0)
+    specs = fastsim_jax.check_jax_envelope(sc)
+    ordered, arrival, l_in, l_real = fastsim_jax._trace_arrays(
+        sc.materialize())
+    l_out, tds, t_first, t_fin, _ = fastsim_jax._simulate(
+        sc, specs, ordered, arrival, l_in, l_real, len(specs), "cpu",
+        edf=False)
+    want = [dict(l_pred=int(l_real[i]), l_out=int(l_out[i]),
+                 t_decode_spent=float(tds[i]),
+                 t_first_token=None if math.isnan(t_first[i])
+                 else float(t_first[i]),
+                 t_finish=None if math.isnan(t_fin[i]) else float(t_fin[i]))
+            for i in range(len(ordered))]
+    assert any(w["t_first_token"] is None for w in want)
+    assert any(w["t_first_token"] is not None and w["t_finish"] is None
+               for w in want)
+    run_t = clone_trace(trace)
+    fastsim_jax.run_colocated_jax(dataclasses.replace(sc, workload=run_t),
+                                  device="cpu")
+    got, _, _, _ = fastsim_jax._trace_arrays(run_t)
+    for r, w in zip(got, want):
+        assert type(r.l_pred) is int and type(r.l_out) is int
+        assert type(r.t_decode_spent) is float
+        for k in ("t_first_token", "t_finish"):
+            v = getattr(r, k)
+            assert v is None or type(v) is float, k
+        assert {k: getattr(r, k) for k in w} == w
+        assert (r.state == ReqState.FINISHED) == (w["t_finish"] is not None)
+
+
+def test_trace_and_tenant_arrays_match_the_requests():
+    # a two-tenant trace shuffled, with arrival ties: the arrays in a
+    # stable arrival order (ties keep the trace's order), and the EDF rank
+    # by priority (desc), deadline (Request.deadline, asc), index
+    merged = list(_two_tenants()[1])
+    rng = random.Random(3)
+    rng.shuffle(merged)
+    for r in merged[:12]:
+        r.arrival = 5.0
+    ordered, arrival, l_in, l_real = fastsim_jax._trace_arrays(merged)
+    order = sorted(range(len(merged)), key=lambda i: merged[i].arrival)
+    assert [id(r) for r in ordered] == [id(merged[i]) for i in order]
+    assert arrival.dtype == np.float64 and l_in.dtype == np.int64
+    assert arrival.tolist() == [r.arrival for r in ordered]
+    assert l_in.tolist() == [r.l_in for r in ordered]
+    assert l_real.tolist() == [r.l_real for r in ordered]
+    key = sorted(range(len(ordered)), key=lambda i: (
+        -ordered[i].priority, ordered[i].deadline, i))
+    rank, ttft_r, atgt_r, tagged = fastsim_jax._tenant_arrays(ordered,
+                                                              arrival)
+    assert [int(x) for x in np.argsort(rank)] == key
+    assert ttft_r.tolist() == [r.slo_ttft for r in ordered]
+    assert atgt_r.tolist() == [r.slo_atgt for r in ordered]
+    assert tagged == any(math.isfinite(r.slo_atgt) for r in ordered)
+    assert fastsim_jax._trace_arrays([])[1].dtype == np.float64
+
+
+def _backlog_inputs(n_workers=2):
+    # llama2-70b workers (4 A100s, max batch 32, inert KV) under the
+    # `scale` trace's workload at its diurnal peak (~18.5 req/s) for 20 s:
+    # the backlog grows to hundreds of untagged requests
+    slo = PAPER_SLOS["llama2-70b"]
+    base = make_worker_spec(get_arch("llama2-70b"), A100_80G, slo, n_g=4)
+    spec = dataclasses.replace(base, max_batch=32, perf=PerfModel(
+        prefill=base.perf.prefill, decode=base.perf.decode))
+    trace = diurnal_trace(WorkloadConfig(
+        mean_rate=11.574, duration=20.0, seed=7, in_mu=5.0, in_sigma=1.1,
+        out_mu=5.3, out_sigma=0.9), amplitude=0.6, period=8640.0,
+        phase=math.pi / 2)
+    sc = api.Scenario(workload=trace, fleet=api.FleetSpec(
+        [api.PoolSpec(spec, n_workers)]), slo=slo,
+        topology=api.Colocated(), scaling=api.FixedScale(), engine="jax")
+    specs = fastsim_jax.check_jax_envelope(sc)
+    ordered, arrival, l_in, l_real = fastsim_jax._trace_arrays(trace)
+    return fastsim_jax._kernel_inputs(sc, specs, ordered, arrival, l_in,
+                                      l_real, n_workers, "cpu", edf=False)
+
+
+def test_pruned_tries_find_no_lane():
+    # The kernel's placement pass settles without a round every untagged
+    # request no larger (weight l_in + gamma * l_real, and l_in) than one
+    # of the last four that found no lane in the same pass: within a pass
+    # lanes only fill, and with gamma, theta, c2 and k1 >= 0 constraints
+    # (a)-(d) only tighten as a lane fills or the request grows. The plain
+    # version's passes over a long backlog, replayed under that rule: every
+    # request it would skip indeed found no lane.
+    args, st = _backlog_inputs()
+    assert st["gamma"] >= 0 and st["theta"] >= 0
+    assert min(st["coefs"][0]) >= 0 and min(st["coefs"][3]) >= 0  # k1, c2
+    lists = [x.tolist() for x in args[:3]] + [x.tolist() for x in args[4:]]
+    kw = dict(st, coefs=tuple(list(map(float, c)) for c in st["coefs"]),
+              maxb=list(st["maxb"]), maxb_norm=list(st["maxb_norm"]),
+              cmax_norm=list(st["cmax_norm"]))
+    passes = []
+    fastsim_ops._simulate(*lists[:3], int(args[3]), *lists[3:], **kw,
+                          passes=passes)
+    pruned = tried = 0
+    for tries in passes:
+        front = []
+        for v, liv, tagged, placed in tries:
+            tried += 1
+            if not tagged and any(v >= fv and liv >= fl for fv, fl in front):
+                assert not placed
+                pruned += 1
+            elif not placed and not tagged:
+                front = (front + [(v, liv)])[-4:]
+    assert pruned > tried // 4      # the rule decides most of the backlog
 
 
 def _device_hypot(a: float, b: float) -> float:
