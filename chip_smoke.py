@@ -203,7 +203,24 @@
    core request by request (device ms a launch, the host's split),
    ``optimize(policy_space=...)`` on both engines (the same plan), and
    po2 twice (deterministic, within 0.15 of the numpy core).
-22. Prints ``{"kernels": [...]}``, then, last,
+22. Distribution (``dist_phase``): full-width granite-3-8b (40 layers,
+   random bf16 weights from seed 0) under ``make_policy`` on a
+   ("data", "model") mesh of spawned ranks on the card (a gloo group
+   through a ``file://`` store), every parameter, input and cache leaf a
+   DTensor: on one rank (``DIST_RANKS``) a prefill of 2 x 1024 tokens
+   (cold, then warm) and 16 greedy decode steps, the logits equal to the
+   unsharded ``LM``'s on the same weights and tokens (gated); on two
+   ranks (``DIST_TP_RANKS``, heads, d_ff and K/V heads over "model") the
+   prefill alone, both ranks' logits alike and within 2e-2 of their
+   largest value of the unsharded ``LM``'s (gated); on every rank B2
+   once per layer per prefill and B3 2 x 40 + 1 times per prefill and per
+   step on the local shards (gated); prefill and decode ms beside the
+   unsharded ``LM``'s, each prefill's collectives, device time by kernel
+   and idle share of a warm prefill and a step. Then, on the host only,
+   ``python -m repro_torch.launch.dryrun`` of granite-3-8b's decode_32k
+   and train_4k cells on 256 fake ranks: per-device peak GB, dot FLOPs,
+   collective bytes by kind, trace seconds (counts from shapes).
+23. Prints ``{"kernels": [...]}``, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -216,6 +233,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1107,24 +1125,27 @@ def main_path(torch, counters):
     return launches, arch, params, cluster.w32
 
 
-def _device_ms_by_kernel(torch, fn, n=3):
+def _device_ms_by_kernel(torch, fn, n=3, host_keys=()):
     """Device time per call of ``fn`` by kernel name, and device operations
     (kernels and copies) per call, from torch.profiler over n calls
-    (device-side events only)."""
+    (device-side events only); with ``host_keys``, a third item: the host
+    ms per call of the host events whose names hold one of them."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(n):
             fn()
-    by_name, ops = {}, 0
+    by_name, ops, host = {}, 0, {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if any(k in e.key for k in host_keys):
+                host[e.key] = e.cpu_time_total / 1e3 / n
             continue
         t = e.self_device_time_total / 1e3 / n
         if t > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + t
             ops += e.count
-    return by_name, ops / n
+    return (by_name, ops / n, host) if host_keys else (by_name, ops / n)
 
 
 def _summary(profile, wall_ms):
@@ -1511,8 +1532,8 @@ def moe_drop_probe(torch, name, model, params, toks, s_max):
     routed = model_mod.moe_ffn
     seen = []
 
-    def probe(x, p, arch_, cf=None):
-        out, aux = routed(x, p, arch_, cf)
+    def probe(x, p, arch_, policy, cf=None):
+        out, aux = routed(x, p, arch_, policy, cf)
         h = x.reshape(-1, x.shape[-1]).float()
         top = (h @ p["router"].float()).topk(arch.moe.top_k, dim=-1).indices
         load = torch.bincount(top.reshape(-1), minlength=arch.moe.n_experts)
@@ -1535,7 +1556,8 @@ def moe_drop_probe(torch, name, model, params, toks, s_max):
     worst = max(range(len(stats)), key=lambda i: stats[i][0])
     x, p, out, _ = seen[worst]
     p_cpu = {k: p[k].cpu() for k in ("router", "w_gate", "w_up", "w_down")}
-    out_cpu, aux_cpu = routed(x.cpu(), p_cpu, arch, model.capacity_factor)
+    out_cpu, aux_cpu = routed(x.cpu(), p_cpu, arch,
+                              capacity_factor=model.capacity_factor)
     err = (out.cpu().float() - out_cpu.float()).abs().max() \
         / out_cpu.float().abs().max()
     log(f"[{name} drops] layer {worst} on the CPU, from the card's input: "
@@ -2949,6 +2971,247 @@ def chunked_phase(torch, smi):
     return case, launches
 
 
+# The distribution phase's ranks. Gloo, the one backend that takes two
+# ranks on one card (NCCL refuses them), segfaults in its all-gather of
+# CUDA tensors (all_gather_into_tensor, and with it DTensor's Shard ->
+# Replicate) with the torch build measured on one H100; its all-reduce,
+# reduce-scatter and all-to-all ran (PERF.md). Decode gathers the query
+# heads and the new token's K/V, so prefill and decode run on a one-rank
+# mesh (DIST_RANKS), where the logits must equal the unsharded LM's, and
+# a prefill alone on a two-rank mesh (DIST_TP_RANKS: heads, d_ff and the
+# K/V heads over "model"; the row-parallel products' all-reduce and the
+# cache's Shard(2) -> Shard(1) all-to-all), within DIST_TOL.
+DIST_RANKS = 1
+DIST_TP_RANKS = 2
+DIST_PREFILL = (2, 1024)                   # batch, prompt
+DIST_STEPS = 16
+DIST_TOL = 2e-2                            # of the logits' largest value
+
+
+def _dist_rank(rank, n, init, out, layers):
+    """One rank of ``dist_phase`` (spawned): granite-3-8b (``layers`` deep,
+    default all 40) under ``make_policy`` on a (1, n) ("data", "model")
+    mesh, random bf16 weights from seed 0 (each rank draws every leaf and
+    keeps its shard), a prefill of DIST_PREFILL (cold, then warm, its
+    collectives counted by ``CommDebugMode``) and, on one rank,
+    DIST_STEPS greedy decode steps; launches of B2 and B3 counted per
+    prefill and per step; one warm prefill and one step profiled. Then
+    the same LM without a policy on the same weights and tokens (rank 0;
+    timed on one rank): each pass's logits against the sharded ones.
+    Each rank writes its results to ``out`` + its rank."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=n)
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor.debug import CommDebugMode
+
+        from repro_torch.configs import ShapeSpec, get_arch
+        from repro_torch.distributed.sharding import make_policy
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.rmsnorm import rmsnorm
+        from repro_torch.models.model import LM
+        arch = get_arch("granite-3-8b")
+        if layers:
+            arch = dataclasses.replace(arch, n_layers=layers)
+        b, s = DIST_PREFILL
+        mesh = init_device_mesh("cuda", (1, n),
+                                mesh_dim_names=("data", "model"))
+        policy = make_policy(arch, ShapeSpec("prefill_1k", "prefill", s, b),
+                             mesh)
+        model = LM(arch, policy, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        toks = torch.as_tensor(np.random.default_rng(0).integers(
+            2, arch.vocab, (b, s)), device="cuda")
+        res = {"rank": rank, "ranks": n, "layers": arch.n_layers,
+               "mesh": [1, n], "wq_local": list(
+                   params["seg0"]["wq"].to_local().shape),
+               "k_big_placements": None, "prefill": [], "steps": []}
+
+        def counted(fn):
+            flash_attention.launches = rmsnorm.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_ = fn()
+            torch.cuda.synchronize()
+            return out_, 1e3 * (time.perf_counter() - t0), (
+                flash_attention.launches, rmsnorm.launches)
+
+        with torch.no_grad():
+            for _ in range(2):                        # cold, then warm
+                with CommDebugMode() as comms:
+                    (lg, cache), ms, ln = counted(
+                        lambda: model.prefill(params, toks))
+                res["prefill"].append({"ms": ms, "b2": ln[0], "b3": ln[1]})
+            res["prefill_collectives"] = {
+                str(k).split(".")[-1]: v
+                for k, v in comms.get_comm_counts().items()}
+            res["k_big_placements"] = str(tuple(cache[0]["k_big"]
+                                                .placements))
+            logits = [lg.to_local().float()]
+            tokens = [logits[0].argmax(-1)]
+            for _ in range(DIST_STEPS if n == 1 else 0):
+                (lg, cache), ms, ln = counted(
+                    lambda: model.decode_step(params, cache, tokens[-1]))
+                logits.append(lg.to_local().float())
+                tokens.append(logits[-1].argmax(-1))
+                res["steps"].append({"ms": ms, "b2": ln[0], "b3": ln[1]})
+            prof = _device_ms_by_kernel(
+                torch, lambda: model.prefill(params, toks), n=1,
+                host_keys=("gloo", "c10d"))
+            res["profile_prefill"] = dict(_summary(
+                prof[:2], res["prefill"][1]["ms"]), host_ms=prof[2])
+            if n == 1:
+                res["profile_step"] = _summary(_device_ms_by_kernel(
+                    torch, lambda: model.decode_step(params, cache,
+                                                     tokens[-1]),
+                    n=3), float(np.mean([r["ms"] for r in res["steps"]])))
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.save(logits[0].cpu(), f"{out}{rank}.pt")
+        if rank == 0:
+            del params, cache
+            ref = LM(arch, device="cuda")
+            rp = ref.init(torch.Generator(device="cuda").manual_seed(0))
+            errs, ref_ms = [], {"prefill": [], "steps": []}
+            with torch.no_grad():
+                for _ in range(2):                    # cold, then warm
+                    (rl, rc), ms, _ = counted(lambda: ref.prefill(rp, toks))
+                    ref_ms["prefill"].append(ms)
+                for i, lg in enumerate(logits):
+                    if i:
+                        (rl, rc), ms, _ = counted(lambda: ref.decode_step(
+                            rp, rc, tokens[i - 1]))
+                        ref_ms["steps"].append(ms)
+                    errs.append(float((lg - rl.float()).abs().max()
+                                      / rl.float().abs().max()))
+                    if not bool(torch.isfinite(lg).all()):
+                        raise AssertionError(f"dist: step {i}: non-finite "
+                                             "logits")
+            res["max_rel_err"] = errs
+            res["unsharded_ms"] = ref_ms
+            res["tokens"] = [int(t[0]) for t in tokens]
+        with open(f"{out}{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_spawn(torch, n, layers) -> list:
+    """``_dist_rank`` on ``n`` spawned ranks (a gloo group through a
+    ``file://`` store); every rank's results, rank 0's first, and each
+    rank's prefill logits."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank")
+        mp.spawn(_dist_rank, args=(n, "file://" + os.path.join(
+            tmp, "store"), out, layers), nprocs=n, join=True)
+        res = []
+        for r in range(n):
+            with open(f"{out}{r}.json") as f:
+                res.append(json.load(f))
+            res[-1]["logits"] = torch.load(f"{out}{r}.pt")
+    return res
+
+
+def dist_phase(torch, smi, layers=None) -> dict:
+    """The sharded forward of ``LM`` (distribution, A11) on the card:
+    granite-3-8b at full width (``layers`` cuts its depth) under
+    ``make_policy``, ranks spawned (start method spawn) on cuda:0 in a
+    gloo group: prefill and decode on DIST_RANKS, rank 0's logits equal
+    to the unsharded ``LM``'s; a prefill on DIST_TP_RANKS, the heads over
+    "model", every rank's logits alike and rank 0's within DIST_TOL of
+    their largest value. B2 once per layer per prefill and B3 2 x layers
+    + 1 times per prefill and per step, on every rank's local shards.
+    Then, on the host only, the dry run of granite-3-8b's decode_32k and
+    train_4k cells (``python -m repro_torch.launch.dryrun``): per-device
+    peak GB, dot FLOPs, collective bytes by kind and trace seconds,
+    counts derived from shapes, not times."""
+    import numpy as np
+    torch.cuda.empty_cache()
+    res = {}
+    for n, tol in ((DIST_RANKS, 0.0), (DIST_TP_RANKS, DIST_TOL)):
+        ranks = _dist_spawn(torch, n, layers)
+        r0 = res[n] = ranks[0]
+        logits0 = r0["logits"]
+        for r in ranks:
+            passes = r["prefill"] + r["steps"]
+            for i, p in enumerate(passes):
+                want = (r0["layers"] if i < len(r["prefill"]) else 0,
+                        2 * r0["layers"] + 1)
+                if (p["b2"], p["b3"]) != want:
+                    raise AssertionError(
+                        f"dist: {n} rank(s), rank {r['rank']}, pass {i}: "
+                        f"B2/B3 launched {(p['b2'], p['b3'])}, not {want}")
+            if not torch.equal(r.pop("logits"), logits0):
+                raise AssertionError(f"dist: rank {r['rank']}'s logits "
+                                     "differ from rank 0's")
+        if max(r0["max_rel_err"]) > tol:
+            raise AssertionError(f"dist: {n} rank(s): logits off the "
+                                 f"unsharded LM by {max(r0['max_rel_err'])}"
+                                 f" of their largest (limit {tol})")
+        ref = r0["unsharded_ms"]
+        decode = (f"decode {np.mean([p['ms'] for p in r0['steps']]):.2f} ms"
+                  f" a step over {len(r0['steps'])} (unsharded "
+                  f"{np.mean(ref['steps']):.2f}); " if r0["steps"] else "")
+        log(f"[dist] granite-3-8b, {r0['layers']} layers, {n} rank(s) on "
+            f"mesh {r0['mesh']}, wq local {r0['wq_local']}, cache "
+            f"{r0['k_big_placements']}; prefill B={DIST_PREFILL[0]} "
+            f"S={DIST_PREFILL[1]} cold {r0['prefill'][0]['ms']:.1f} ms, "
+            f"warm {r0['prefill'][1]['ms']:.1f} ms (unsharded "
+            f"{ref['prefill'][0]:.1f}, {ref['prefill'][1]:.1f}); {decode}"
+            f"collectives a prefill {json.dumps(r0['prefill_collectives'])};"
+            f" max |logits - unsharded| / max {max(r0['max_rel_err']):.3g} "
+            f"(limit {tol}); peak {r0['peak_mem_gb']:.1f} GB; card {smi}")
+        log(f"[dist] {n} rank(s): prefill by kernel "
+            + json.dumps(r0["profile_prefill"]))
+        if "profile_step" in r0:
+            log(f"[dist] {n} rank(s): decode step by kernel "
+                + json.dumps(r0["profile_step"]))
+    log("[dist] collectives: gloo carries them through host memory "
+        "(host_ms: their host time), so their time says nothing of NVLink;"
+        " on one rank DTensor issues none")
+    if layers is None:
+        res["dryrun"] = dryrun_cells()
+    return res
+
+
+def dryrun_cells() -> dict:
+    """``python -m repro_torch.launch.dryrun`` for granite-3-8b's
+    decode_32k and train_4k cells on the host: each record's per-device
+    numbers (counts from shapes, not measurements on any chip)."""
+    import tempfile
+    out = {}
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for shape in ("decode_32k", "train_4k"):
+        with tempfile.TemporaryDirectory() as tmp:
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 "granite-3-8b", "--shape", shape, "--out", tmp],
+                capture_output=True, text=True, env=env, timeout=600)
+            if r.returncode:
+                raise AssertionError(f"dryrun {shape}: {r.stdout[-2000:]}"
+                                     f"{r.stderr[-2000:]}")
+            with open(os.path.join(tmp, f"granite-3-8b_{shape}_pod1.json")
+                      ) as f:
+                rec = json.load(f)
+        out[shape] = rec
+        log(f"[dryrun] granite-3-8b/{shape} (host counts, {rec['n_devices']}"
+            f" fake ranks): peak {rec['peak_bytes_per_device'] / 1e9:.2f} "
+            f"GB a device, dot FLOPs {rec['hlo_dot_flops']:.4g}, "
+            f"collectives " + json.dumps(rec["collectives"])
+            + f", trace {rec['trace_s']} s")
+    return out
+
+
 def grad_refusals(torch):
     """B1 and B4 have no backward: on CUDA each raises when an input
     requires grad, before any launch."""
@@ -3107,6 +3370,11 @@ def main() -> int:
     chunk_case, chunk_launches = chunked_phase(torch, smi)
     log(f"[fastsim chunk] chunked-core phase: "
         f"{time.perf_counter() - t0:.1f}s wall; card {smi}")
+    gc.collect()
+    t0 = time.perf_counter()
+    dist_phase(torch, smi)
+    log(f"[dist] distribution phase: {time.perf_counter() - t0:.1f}s wall; "
+        f"card {smi}")
 
     representative = {"rmsnorm": "1024x4096",
                       "flash_attention": "B=1 Sq=1024 Skv=1024 H=32/32 D=128",

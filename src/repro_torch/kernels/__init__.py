@@ -14,3 +14,14 @@ CUDA sources live under each ``csrc/``; ``_build`` compiles them with nvcc
 at first use and imports the library as a CPython extension module. A wrapper runs its plain
 version for CPU tensors and its kernel for CUDA tensors, with no fallback.
 """
+from torch.distributed.tensor import DTensor
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise ``TypeError`` if any of ``tensors`` is a DTensor: a kernel
+    takes one rank's local shard, which ``local_map`` hands it (a DTensor
+    passes ``is_cuda`` but has no local storage to launch on)."""
+    for t in tensors:
+        if type(t) is DTensor:
+            raise TypeError(f"{name}: got a DTensor; call it on each rank's "
+                            "local shard (local_map)")

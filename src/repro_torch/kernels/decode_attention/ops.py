@@ -15,7 +15,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_dtensor
 
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -162,7 +162,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
     """See paged_decode_ref. On CUDA, block_table and lengths are int32,
     and an input that requires grad while grad mode is on is refused with
-    a RuntimeError: the kernel has no backward."""
+    a RuntimeError: the kernel has no backward. A DTensor is refused with
+    a TypeError (``refuse_dtensor``)."""
+    refuse_dtensor("paged_decode_attention", q, k_pages, v_pages,
+                   block_table, lengths)
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pages, v_pages, block_table, lengths,
                                 scale)

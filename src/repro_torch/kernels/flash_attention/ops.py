@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_dtensor
 
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -144,7 +144,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
     On CUDA, when grad mode is on and q, k or v requires grad, the kernel
     runs inside ``_FlashAttention``, whose backward is
-    ``flash_attention_bwd``; otherwise it launches bare."""
+    ``flash_attention_bwd``; otherwise it launches bare. A DTensor is
+    refused with a TypeError (``refuse_dtensor``)."""
+    refuse_dtensor("flash_attention", q, k, v, kv_len)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                                    kv_len=kv_len, scale=scale,

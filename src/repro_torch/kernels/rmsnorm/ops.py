@@ -9,7 +9,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_dtensor
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -55,7 +55,9 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     it launches bare, and the host work of a call is kept under
     F.rms_norm's: after the checks, one allocation and a launch through
     the library's CPython binding (which raises on a CUDA error) on the
-    raw handle of the current stream."""
+    raw handle of the current stream. A DTensor is refused with a
+    TypeError (``refuse_dtensor``)."""
+    refuse_dtensor("rmsnorm", x, w, residual)
     if not x.is_cuda:
         if x.device.type == "cpu":
             return rmsnorm_ref(x, w, residual, eps)

@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_dtensor
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_P, _MAX_N, _MAX_CHUNK = 64, 128, 4096
@@ -205,7 +205,9 @@ def ssd_scan(x, dt, A, Bm, Cm, D, init_state: Optional[torch.Tensor] = None,
     ragged last chunk acts as if its missing positions had dt = 0 and
     x = 0, which is the recurrence's own result. On CUDA it refuses, with
     a RuntimeError, an input that requires grad while grad mode is on: the
-    kernel has no backward yet."""
+    kernel has no backward yet. A DTensor is refused with a TypeError
+    (``refuse_dtensor``)."""
+    refuse_dtensor("ssd_scan", x, dt, A, Bm, Cm, D, init_state)
     s = x.shape[1]
     if x.device.type == "cpu":
         chunk = min(chunk, s)

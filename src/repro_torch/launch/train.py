@@ -9,25 +9,37 @@ on the CUDA card, or with ``--device cpu`` on the CPU (the kernels' plain
 versions). The reduced copy has d_model 256, so its attention heads are
 64 wide, which kernel B2 takes; the reference's smoke model (d_model 64)
 has heads of 16. A Mamba-2 or hybrid arch trains on the CPU only: kernel
-B4 has no backward yet. Without ``--smoke`` the reference trains the
-arch at full size on its production mesh; the port has no mesh yet
-(ROADMAP A11) and raises. With ``--ckpt`` it resumes from the latest
-checkpoint there and saves one every 50 steps.
+B4 has no backward yet. Without ``--smoke`` it trains the arch at full
+size, as the reference does, on the production mesh
+(``make_production_mesh``, 16x16 or with ``--multi-pod`` 2x16x16) under
+``make_policy(arch, TRAIN_4K, mesh)``, over the world that ``torchrun``
+started (its environment initialises the process group); on a world of
+fewer ranks the mesh raises ``RuntimeError``. With ``--ckpt`` it resumes
+from the latest checkpoint there, each leaf laid out by its spec, and
+saves one every 50 steps.
+
+  torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
+      --arch granite-3-8b --steps 50
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.configs import get_arch, reduced
+from repro_torch.configs import TRAIN_4K, get_arch, reduced
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import NO_POLICY, make_policy
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.model import LM
 from repro_torch.training import (AdamWConfig, DataConfig, TrainConfig,
                                   batch_at_step, init_train_state,
                                   latest_step, load, make_train_step, save)
+from repro_torch.training.optimizer import OptState
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -46,14 +58,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    if not args.smoke:
-        raise NotImplementedError(
-            "training at full size runs on the reference's production mesh"
-            f"{' (multi-pod)' if args.multi_pod else ''}, which the port "
-            "does not have yet (ROADMAP A11); pass --smoke")
-    arch = reduced(get_arch(args.arch), d_model=256)
-    batch, seq = 8, 64
-    model = LM(arch, device=device, loss_chunk=min(512, seq))
+    if args.smoke:
+        arch = reduced(get_arch(args.arch), d_model=256)
+        policy = NO_POLICY
+        batch, seq = 8, 64
+    else:
+        if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+            if device.type == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            dist.init_process_group(
+                "nccl" if device.type == "cuda" else "gloo")
+        arch = get_arch(args.arch)
+        mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                    device_type=device.type)
+        policy = make_policy(arch, TRAIN_4K, mesh)
+        batch, seq = TRAIN_4K.global_batch, TRAIN_4K.seq_len
+    model = LM(arch, policy, device=device, loss_chunk=min(512, seq))
     tcfg = TrainConfig(adamw=AdamWConfig(total_steps=args.steps),
                        microbatches=args.microbatches,
                        grad_compression=args.compression)
@@ -66,7 +86,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     params, opt = init_train_state(model, torch.Generator().manual_seed(0),
                                    tcfg)
     if start:
-        restored, _ = load(args.ckpt, start, {"params": params, "opt": opt})
+        pspecs = model.param_specs()
+        shardings = {"params": pspecs, "opt": OptState(
+            step=None, mu=pspecs, nu=pspecs, master=pspecs,
+            ef=pspecs if opt.ef is not None else None)}
+        restored, _ = load(args.ckpt, start, {"params": params, "opt": opt},
+                           shardings=shardings if policy.mesh else None,
+                           mesh=policy.mesh)
         params, opt = restored["params"], restored["opt"]
         print(f"[train] resumed at step {start}")
     start = start or 0

@@ -2,20 +2,34 @@
 
 ``rms_norm`` dispatches by the tensor's device: the CUDA kernel B3 for a
 CUDA tensor, its plain version for a CPU tensor. A failing kernel raises;
-nothing falls back."""
+nothing falls back. On a DTensor it runs on each rank's rows through
+``local_map``: rows are independent, so the local call is exact."""
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.rmsnorm import rmsnorm
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    """y = x * rsqrt(mean(x^2) + eps) * w in fp32, cast to x's type."""
-    return rmsnorm(x, w, eps=eps)
+    """y = x * rsqrt(mean(x^2) + eps) * w in fp32, cast to x's type. A
+    DTensor x keeps its rows' layout; a pending sum is reduced and a
+    sharded last dim gathered first (GSPMD gathers it too); w is
+    replicated."""
+    if not isinstance(x, DTensor):
+        return rmsnorm(x, w, eps=eps)
+    rows = tuple(Replicate() if pl.is_partial() or pl.is_shard(x.ndim - 1)
+                 else pl for pl in x.placements)
+    return local_map(lambda x_, w_: rmsnorm(x_, w_, eps=eps),
+                     out_placements=list(rows),
+                     in_placements=(rows, (Replicate(),) * len(rows)),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, w)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

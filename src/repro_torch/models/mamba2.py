@@ -2,8 +2,14 @@
 prefill through ``ssd_scan`` (kernel B4 on CUDA) and the recurrent one-token
 decode through ``ssd_decode_step`` (plain torch, as in the reference).
 
-The reference's sharding ``Policy`` constraints are dropped: the port runs
-one worker on one device.
+Tensor-parallel layout, as the reference's: the x/z/dt projections and
+the SSD heads are sharded over the ``model`` axis ("d_inner" /
+"ssm_heads"); the B/C projections (shared across heads) are replicated.
+The depthwise convolutions, B4 and the decode recurrence act on each
+channel or head alone, so they run on each rank's shard through
+``local_map``; the gated RMSNorm reduces over the sharded d_inner
+(DTensor's reduction, a small all-reduce of per-token sums). out_proj is
+row-parallel.
 
 Cache = (ssm_state (B, H, P, N) fp32, conv_x (B, d_conv-1, di) bf16,
 conv_bc (B, d_conv-1, 2GN) bf16); the conv windows are bf16 whatever the
@@ -16,8 +22,12 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import NO_POLICY, Policy
 from repro_torch.kernels.ssd_scan import ssd_decode_step, ssd_scan
 from repro_torch.models.common import _silu
+
+_DI = ("batch", None, "d_inner")
+_HEADS = ("batch", None, "ssm_heads", None)
 
 
 @dataclasses.dataclass
@@ -72,7 +82,16 @@ def _causal_depthwise_conv(seq, w, b):
     return out.transpose(1, 2) + b
 
 
-def mamba_block_full(x, p, arch, *, return_cache: bool = False):
+def _conv_silu(seq, w, b, policy: Policy, channels):
+    """silu(causal depthwise conv) on each rank's channels."""
+    ax = ("batch", None, channels)
+    return policy.local(
+        lambda s_, w_, b_: _silu(_causal_depthwise_conv(s_, w_, b_)),
+        (ax, (None, channels), (channels,)), ax)(seq, w, b)
+
+
+def mamba_block_full(x, p, arch, policy: Policy = NO_POLICY, *,
+                     return_cache: bool = False):
     """x: (B, S, D) -> (B, S, D) [, MambaCache]. Prefill starts from a
     zero state and zero conv windows (the reference's ``init_cache`` has no
     caller)."""
@@ -86,31 +105,43 @@ def mamba_block_full(x, p, arch, *, return_cache: bool = False):
     xr = x @ p["w_x"]                                  # (B, S, di)
     bc = x @ p["w_bc"]                                 # (B, S, 2GN)
     dt_raw = x @ p["w_dt"] + p["dt_bias"]              # (B, S, nh)
+    z = policy.constrain(z, _DI)
+    xr = policy.constrain(xr, _DI)
 
-    xc = _silu(_causal_depthwise_conv(xr, p["conv_wx"], p["conv_bx"]))
-    bcc = _silu(_causal_depthwise_conv(bc, p["conv_wbc"], p["conv_bbc"]))
+    xc = _conv_silu(xr, p["conv_wx"], p["conv_bx"], policy, "d_inner")
+    bcc = _conv_silu(bc, p["conv_wbc"], p["conv_bbc"], policy, None)
+    xc = policy.constrain(xc, _DI)
 
     gn = s_cfg.ngroups * s_cfg.d_state
     Bm, Cm = bcc[..., :gn], bcc[..., gn:]
     dt = _softplus(dt_raw.float())
     A = -torch.exp(p["A_log"].float())
-    y, final_state = ssd_scan(
-        xc.reshape(b, s, nh, s_cfg.head_dim).contiguous(), dt, A,
-        Bm.reshape(b, s, s_cfg.ngroups, s_cfg.d_state).contiguous(),
-        Cm.reshape(b, s, s_cfg.ngroups, s_cfg.d_state).contiguous(),
-        p["D"].float().contiguous(), chunk=s_cfg.chunk)
+    grp = ("batch", None, None, None)
+
+    def scan(x_, dt_, a_, b_, c_, d_):
+        return ssd_scan(x_.contiguous(), dt_, a_, b_.contiguous(),
+                        c_.contiguous(), d_.contiguous(), chunk=s_cfg.chunk)
+    y, final_state = policy.local(
+        scan, (_HEADS, ("batch", None, "ssm_heads"), ("ssm_heads",), grp,
+               grp, ("ssm_heads",)),
+        [_HEADS, ("batch", "ssm_heads", None, None)])(
+        xc.reshape(b, s, nh, s_cfg.head_dim), dt, A,
+        Bm.reshape(b, s, s_cfg.ngroups, s_cfg.d_state),
+        Cm.reshape(b, s, s_cfg.ngroups, s_cfg.d_state), p["D"].float())
     y = _gated_rmsnorm(y.reshape(b, s, di), z, p["norm_w"], arch.norm_eps)
     out = y @ p["w_out"]
     if return_cache:
         def take(t):
-            return F.pad(t, (0, 0, max(pad - s, 0), 0))[:, -pad:, :] \
-                .to(torch.bfloat16)
+            if s < pad:
+                t = F.pad(t, (0, 0, pad - s, 0))
+            return t[:, -pad:, :].to(torch.bfloat16)
         return out, MambaCache(ssm_state=final_state, conv_x=take(xr),
                                conv_bc=take(bc))
     return out
 
 
-def mamba_block_decode(x, cache: MambaCache, p, arch
+def mamba_block_decode(x, cache: MambaCache, p, arch,
+                       policy: Policy = NO_POLICY
                        ) -> Tuple[torch.Tensor, MambaCache]:
     """One-token step. x: (B, D) -> (B, D)."""
     s_cfg = arch.ssm
@@ -125,16 +156,26 @@ def mamba_block_decode(x, cache: MambaCache, p, arch
 
     win_x = torch.cat([cache.conv_x.to(xr.dtype), xr[:, None]], dim=1)
     win_bc = torch.cat([cache.conv_bc.to(bc.dtype), bc[:, None]], dim=1)
-    xc = _silu(torch.einsum("bkc,kc->bc", win_x, p["conv_wx"].to(xr.dtype))
-               + p["conv_bx"])
-    bcc = _silu(torch.einsum("bkc,kc->bc", win_bc,
-                             p["conv_wbc"].to(bc.dtype)) + p["conv_bbc"])
+
+    def conv_step(win, w, b_):
+        return _silu(torch.einsum("bkc,kc->bc", win, w.to(win.dtype)) + b_)
+    xc = policy.local(conv_step, (_DI, (None, "d_inner"), ("d_inner",)),
+                      ("batch", "d_inner"))(win_x, p["conv_wx"], p["conv_bx"])
+    bcc = policy.local(conv_step, (("batch", None, None), (None, None),
+                                   (None,)), ("batch", None))(
+        win_bc, p["conv_wbc"], p["conv_bbc"])
 
     gn = s_cfg.ngroups * s_cfg.d_state
     Bm, Cm = bcc[..., :gn], bcc[..., gn:]
     dt = _softplus(dt_raw.float())
     A = -torch.exp(p["A_log"].float())
-    y, new_state = ssd_decode_step(
+    state = ("batch", "ssm_heads", None, None)
+    grp = ("batch", None, None)
+    y, new_state = policy.local(
+        ssd_decode_step, (state, ("batch", "ssm_heads", None),
+                          ("batch", "ssm_heads"), ("ssm_heads",), grp, grp,
+                          ("ssm_heads",)),
+        [("batch", "ssm_heads", None), state])(
         cache.ssm_state, xc.reshape(b, nh, s_cfg.head_dim), dt, A,
         Bm.reshape(b, s_cfg.ngroups, s_cfg.d_state),
         Cm.reshape(b, s_cfg.ngroups, s_cfg.d_state), p["D"].float())

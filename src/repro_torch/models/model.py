@@ -35,19 +35,38 @@ models), apart from the reference's promotions (an fp32 frontend gives
 fp32 cross K/V). On CUDA attention prefill, self and cross, goes through
 kernel B2, every norm through B3 and every Mamba-2 prefill through B4;
 the staged decode and the MoE routing and expert products
-(``models/moe.py``) are plain torch, as the reference's are jnp."""
+(``models/moe.py``) are plain torch, as the reference's are jnp.
+
+Distribution comes from a ``Policy`` (``distributed/sharding.py``): each
+template leaf carries its logical axes, ``param_specs`` and
+``cache_specs`` resolve them, and under a policy with a mesh ``init`` and
+``init_cache`` put each leaf on the mesh as a DTensor laid out by its
+shape-aware spec (inputs likewise, ``_input``), the model's constraints
+redistribute activations at the reference's sites, and every kernel runs
+on each rank's local shard through ``local_map``. The entry points then
+run under ``implicit_replication``: a plain tensor that every rank
+computes alike (positions, masks, constants) joins DTensor ops as
+replicated. ``init(None)`` builds uninitialised leaves from the template
+alone, which the dry run (``launch/dryrun.py``) calls under
+``FakeTensorMode``, as the reference's ``jax.eval_shape``."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, Family, PosEmb
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import (NO_POLICY, PSpec, Policy,
+                                              mesh_axis_names, placements)
 from repro_torch.models.attention import (RECENT_WINDOW, AttnCache,
                                           cross_attention_decode,
                                           cross_attention_full, flush_cache,
@@ -56,11 +75,12 @@ from repro_torch.models.attention import (RECENT_WINDOW, AttnCache,
 from repro_torch.models.common import gated_mlp, rms_norm, sinusoidal_pos
 from repro_torch.models.mamba2 import (MambaCache, make_mamba_cache,
                                        mamba_block_decode, mamba_block_full)
-from repro_torch.models.moe import moe_ffn, shared_expert_ffn
+from repro_torch.models.moe import (moe_ffn, padded_experts,
+                                    shared_expert_ffn)
 
-# leaf = (shape, scale); scale -1 -> ones, 0 -> zeros, -2 -> log U[1, 16]
-# in fp32 (A_log), else N(0, scale^2)
-Leaf = Tuple[Tuple[int, ...], float]
+# leaf = (shape, logical axes, scale); scale -1 -> ones, 0 -> zeros, -2 ->
+# log U[1, 16] in fp32 (A_log), else N(0, scale^2)
+Leaf = Tuple[Tuple[int, ...], Tuple[Optional[str], ...], float]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,25 +97,32 @@ def _attn_leaves(arch: ArchConfig) -> Dict[str, Leaf]:
     hd = arch.resolved_head_dim
     qd, kvd = arch.n_heads * hd, arch.n_kv_heads * hd
     s = 1.0 / math.sqrt(d)
-    leaves = {"wq": ((d, qd), s), "wk": ((d, kvd), s), "wv": ((d, kvd), s),
-              "wo": ((qd, d), 1.0 / math.sqrt(qd))}
+    col, row = ("p_fsdp", "p_tp"), ("p_tp", "p_fsdp")
+    leaves = {"wq": ((d, qd), col, s), "wk": ((d, kvd), col, s),
+              "wv": ((d, kvd), col, s),
+              "wo": ((qd, d), row, 1.0 / math.sqrt(qd))}
     if arch.qkv_bias:
-        leaves.update({"bq": ((qd,), 0.0), "bk": ((kvd,), 0.0),
-                       "bv": ((kvd,), 0.0)})
+        leaves.update({"bq": ((qd,), ("p_tp",), 0.0),
+                       "bk": ((kvd,), ("p_tp",), 0.0),
+                       "bv": ((kvd,), ("p_tp",), 0.0)})
     return leaves
 
 
 def _mlp_leaves(arch: ArchConfig, d_ff: int) -> Dict[str, Leaf]:
     d = arch.d_model
-    return {"wg": ((d, d_ff), 1.0 / math.sqrt(d)),
-            "wu": ((d, d_ff), 1.0 / math.sqrt(d)),
-            "wd": ((d_ff, d), 1.0 / math.sqrt(d_ff))}
+    return {"wg": ((d, d_ff), ("p_fsdp", "p_tp"), 1.0 / math.sqrt(d)),
+            "wu": ((d, d_ff), ("p_fsdp", "p_tp"), 1.0 / math.sqrt(d)),
+            "wd": ((d_ff, d), ("p_tp", "p_fsdp"), 1.0 / math.sqrt(d_ff))}
+
+
+def _norms(arch: ArchConfig) -> Dict[str, Leaf]:
+    d = arch.d_model
+    return {"ln1": ((d,), (None,), -1.0), "ln2": ((d,), (None,), -1.0)}
 
 
 def _dense_layer_leaves(arch: ArchConfig, d_ff: int = 0) -> Dict[str, Leaf]:
     """A dense layer; ``d_ff`` (default: the arch's) sets the MLP width."""
-    d = arch.d_model
-    out = {"ln1": ((d,), -1.0), "ln2": ((d,), -1.0)}
+    out = _norms(arch)
     out.update(_attn_leaves(arch))
     out.update(_mlp_leaves(arch, d_ff or arch.d_ff))
     return out
@@ -104,33 +131,36 @@ def _dense_layer_leaves(arch: ArchConfig, d_ff: int = 0) -> Dict[str, Leaf]:
 def _cross_layer_leaves(arch: ArchConfig) -> Dict[str, Leaf]:
     """A cross-attention layer: a dense layer's leaves and its two tanh
     gates, zero at init."""
-    d = arch.d_model
-    out = {"ln1": ((d,), -1.0), "ln2": ((d,), -1.0),
-           "gate_attn": ((1,), 0.0), "gate_mlp": ((1,), 0.0)}
+    out = _norms(arch)
+    out.update({"gate_attn": ((1,), (None,), 0.0),
+                "gate_mlp": ((1,), (None,), 0.0)})
     out.update(_attn_leaves(arch))
     out.update(_mlp_leaves(arch, arch.d_ff))
     return out
 
 
-def _moe_layer_leaves(arch: ArchConfig) -> Dict[str, Leaf]:
-    """Attention plus routed experts (stacked (E, ...); one rank, so no
-    padded experts) and, where the arch has them, the shared experts'
-    MLP."""
+def _moe_layer_leaves(arch: ArchConfig, ep: int) -> Dict[str, Leaf]:
+    """Attention plus routed experts (stacked (E, ...), padded to a
+    multiple of the expert-parallel degree ``ep``) and, where the arch has
+    them, the shared experts' MLP."""
     d = arch.d_model
     m = arch.moe
-    e = m.n_experts
-    out = {"ln1": ((d,), -1.0), "ln2": ((d,), -1.0)}
+    e = padded_experts(m.n_experts, ep)
+    out = _norms(arch)
     out.update(_attn_leaves(arch))
     s = 1.0 / math.sqrt(d)
-    out.update({"router": ((d, e), s),
-                "w_gate": ((e, d, m.d_expert), s),
-                "w_up": ((e, d, m.d_expert), s),
-                "w_down": ((e, m.d_expert, d),
+    out.update({"router": ((d, m.n_experts), (None, None), s),
+                "w_gate": ((e, d, m.d_expert), ("experts", "p_fsdp", None),
+                           s),
+                "w_up": ((e, d, m.d_expert), ("experts", "p_fsdp", None), s),
+                "w_down": ((e, m.d_expert, d), ("experts", None, "p_fsdp"),
                            1.0 / math.sqrt(m.d_expert))})
     if m.n_shared_experts:
         d_sh = m.d_shared or m.d_expert * m.n_shared_experts
-        out.update({"sh_gate": ((d, d_sh), s), "sh_up": ((d, d_sh), s),
-                    "sh_down": ((d_sh, d), 1.0 / math.sqrt(d_sh))})
+        out.update({"sh_gate": ((d, d_sh), ("p_fsdp", "p_tp"), s),
+                    "sh_up": ((d, d_sh), ("p_fsdp", "p_tp"), s),
+                    "sh_down": ((d_sh, d), ("p_tp", "p_fsdp"),
+                                1.0 / math.sqrt(d_sh))})
     return out
 
 
@@ -141,18 +171,44 @@ def _mamba_layer_leaves(arch: ArchConfig) -> Dict[str, Leaf]:
     nh = arch.n_ssm_heads
     gn = s_cfg.ngroups * s_cfg.d_state
     s = 1.0 / math.sqrt(d)
-    return {"ln": ((d,), -1.0), "w_z": ((d, di), s), "w_x": ((d, di), s),
-            "w_bc": ((d, 2 * gn), s), "w_dt": ((d, nh), s),
-            "dt_bias": ((nh,), 0.0), "conv_wx": ((s_cfg.d_conv, di), 0.5),
-            "conv_bx": ((di,), 0.0), "conv_wbc": ((s_cfg.d_conv, 2 * gn), 0.5),
-            "conv_bbc": ((2 * gn,), 0.0), "A_log": ((nh,), -2.0),
-            "D": ((nh,), -1.0), "norm_w": ((di,), -1.0),
-            "w_out": ((di, d), 1.0 / math.sqrt(di))}
+    col = ("p_fsdp", "p_tp")
+    return {"ln": ((d,), (None,), -1.0), "w_z": ((d, di), col, s),
+            "w_x": ((d, di), col, s), "w_bc": ((d, 2 * gn), ("p_fsdp", None),
+                                               s),
+            "w_dt": ((d, nh), col, s), "dt_bias": ((nh,), ("p_tp",), 0.0),
+            "conv_wx": ((s_cfg.d_conv, di), (None, "p_tp"), 0.5),
+            "conv_bx": ((di,), ("p_tp",), 0.0),
+            "conv_wbc": ((s_cfg.d_conv, 2 * gn), (None, None), 0.5),
+            "conv_bbc": ((2 * gn,), (None,), 0.0),
+            "A_log": ((nh,), ("p_tp",), -2.0),
+            "D": ((nh,), ("p_tp",), -1.0),
+            "norm_w": ((di,), ("p_tp",), -1.0),
+            "w_out": ((di, d), ("p_tp", "p_fsdp"), 1.0 / math.sqrt(di))}
 
 
 def _stack(leaves: Dict[str, Leaf], *ns: int) -> Dict[str, Leaf]:
-    return {k: (tuple(ns) + shape, scale)
-            for k, (shape, scale) in leaves.items()}
+    return {k: (tuple(ns) + shape, ("p_layers",) * len(ns) + axes, scale)
+            for k, (shape, axes, scale) in leaves.items()}
+
+
+def _is_leaf(node) -> bool:
+    return isinstance(node, tuple) and len(node) == 3 \
+        and isinstance(node[0], tuple)
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a template-shaped tree (nested dicts,
+    lists, ``MambaCache``s and tuples of tensors or specs), and of ``rest``,
+    shaped alike; a leaf is a tensor, a spec or a number."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, MambaCache):
+        return MambaCache(*(_tree_map(fn, *ts) for ts in zip(
+            tree.leaves(), *(r.leaves() for r in rest))))
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, PSpec):
+        return type(tree)(_tree_map(fn, *ts) for ts in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 def _layer(seg: Dict[str, torch.Tensor], *idx: int) -> Dict[str, torch.Tensor]:
@@ -169,6 +225,16 @@ def _layers(seg: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
             for ts in zip(*(seg[k].unbind(0) for k in keys))]
 
 
+def _rows_whole(table: torch.Tensor) -> torch.Tensor:
+    """An embedding table with its rows gathered where the vocab is
+    sharded (FSDP): each rank then looks up its own tokens, where a
+    row-sharded lookup has every rank embed the whole batch and reduce."""
+    if not isinstance(table, DTensor):
+        return table
+    pl = [Replicate() if p.is_shard(0) else p for p in table.placements]
+    return table.redistribute(table.device_mesh, pl)
+
+
 def _gate(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A cross layer's tanh gate in x's type, taken in fp32 as the
     reference does."""
@@ -180,17 +246,21 @@ _ATTN_KINDS = ("dense", "dense_mlp", "moe")
 
 
 class LM:
-    """``capacity_factor`` (default: the arch's ``moe.capacity_factor``)
-    sizes the MoE layers' static expert capacity, ``loss_chunk`` the
-    sequence chunk of ``train_loss``'s cross-entropy, and ``remat`` runs
-    each layer body of ``train_loss`` under activation checkpointing, as
-    the reference's ``ExecConfig`` fields of those names do."""
+    """``policy`` (default: none, one device) lays the model out on its
+    mesh; ``capacity_factor`` (default: the arch's
+    ``moe.capacity_factor``) sizes the MoE layers' static expert capacity,
+    ``loss_chunk`` the sequence chunk of ``train_loss``'s cross-entropy,
+    and ``remat`` runs each layer body of ``train_loss`` under activation
+    checkpointing, as the reference's ``ExecConfig`` fields of those
+    names do."""
 
-    def __init__(self, arch: ArchConfig, device: DeviceLike = None,
+    def __init__(self, arch: ArchConfig, policy: Policy = NO_POLICY,
+                 device: DeviceLike = None,
                  recent_window: int = RECENT_WINDOW,
                  capacity_factor: Optional[float] = None,
                  loss_chunk: int = 512, remat: bool = False):
         self.arch = arch
+        self.policy = policy
         self.device = resolve_device(device)
         self.recent_window = recent_window
         self.capacity_factor = capacity_factor
@@ -225,14 +295,78 @@ class LM:
             segs.append(SegmentSpec("mamba", trailing))
         return segs
 
+    # -- distribution -------------------------------------------------------
+    def replicating(self):
+        """The context the entry points run under, and a backward through
+        them must run under too: implicit replication under a mesh (a
+        plain tensor joins DTensor ops as replicated), nothing without."""
+        if self.policy.mesh is None:
+            return contextlib.nullcontext()
+        return implicit_replication()
+
+    def _gathered(self, lp):
+        """A layer's params with their FSDP axes ("p_fsdp") gathered where
+        the layer runs (under remat again in its backward), as the
+        reference gathers them layer by layer inside its scan: left
+        sharded, DTensor may gather the activations instead. Without
+        FSDP axes, ``lp``."""
+        pol = self.policy
+        if pol.mesh is None:
+            return lp
+        names = mesh_axis_names(pol.mesh)
+        fsdp = {names.index(a) for a in pol.rules.get("p_fsdp", ())
+                if a in names}
+        if not fsdp:
+            return lp
+
+        def whole(t):
+            if not isinstance(t, DTensor):
+                return t
+            pl = [Replicate() if i in fsdp else p
+                  for i, p in enumerate(t.placements)]
+            return t if pl == list(t.placements) \
+                else t.redistribute(t.device_mesh, pl)
+        return {k: whole(t) for k, t in lp.items()}
+
+    def _input(self, t, logical):
+        """An input every rank holds whole, laid out on the mesh by its
+        shape-aware spec (a DTensor or None as it came)."""
+        if t is None or isinstance(t, DTensor) or self.policy.mesh is None:
+            return t
+        return self.policy.distribute(t, logical)
+
+    def _placed(self, tree, specs):
+        """``tree`` (params or a cache) with each tensor leaf laid out by
+        its spec: a DTensor redistributed, a plain tensor distributed.
+        Without a mesh, ``tree``."""
+        pol = self.policy
+        if pol.mesh is None:
+            return tree
+
+        def place(t, spec):
+            if not isinstance(t, torch.Tensor):
+                return t
+            pl = placements(spec, pol.mesh)
+            if isinstance(t, DTensor):
+                return t if tuple(t.placements) == pl \
+                    else t.redistribute(pol.mesh, pl)
+            return distribute_tensor(t, pol.mesh, pl, src_data_rank=None)
+        return _tree_map(place, tree, specs)
+
     # -- parameters ---------------------------------------------------------
     def param_template(self) -> Dict[str, object]:
+        """Nested dicts of leaves (shape, logical axes, scale), the
+        reference's layout and axes; MoE experts padded to a multiple of
+        the policy's expert-parallel degree."""
         a = self.arch
+        ep = self.policy.axis_size("experts")
         d = a.d_model
-        t: Dict[str, object] = {"embed": ((a.vocab, d), 0.02),
-                                "final_ln": ((d,), -1.0)}
+        t: Dict[str, object] = {"embed": ((a.vocab, d), ("p_fsdp", None),
+                                          0.02),
+                                "final_ln": ((d,), (None,), -1.0)}
         if not a.tie_embeddings:
-            t["head"] = ((d, a.vocab), 1.0 / math.sqrt(d))
+            t["head"] = ((d, a.vocab), ("p_fsdp", "vocab"),
+                         1.0 / math.sqrt(d))
         for i, seg in enumerate(self.segments):
             if seg.kind == "dense":
                 t[f"seg{i}"] = _stack(_dense_layer_leaves(a), seg.n)
@@ -240,7 +374,7 @@ class LM:
                 dff = a.moe.d_shared or a.moe.d_expert * 8
                 t[f"seg{i}"] = _stack(_dense_layer_leaves(a, dff), seg.n)
             elif seg.kind == "moe":
-                t[f"seg{i}"] = _stack(_moe_layer_leaves(a), seg.n)
+                t[f"seg{i}"] = _stack(_moe_layer_leaves(a, ep), seg.n)
             elif seg.kind == "mamba":
                 t[f"seg{i}"] = _stack(_mamba_layer_leaves(a), seg.n)
             elif seg.kind == "hyb_super":
@@ -253,32 +387,57 @@ class LM:
                     "cross": _stack(_cross_layer_leaves(a), seg.n)}
         return t
 
-    def init(self, generator: torch.Generator) -> Dict[str, object]:
+    def _template_map(self, fn):
+        def walk(node):
+            return {k: walk(node[k]) if not _is_leaf(node[k])
+                    else fn(*node[k]) for k in sorted(node)}
+        return walk(self.param_template())
+
+    def param_specs(self):
+        """A spec tree matching ``init``'s, shape-aware (axes that do not
+        divide a dim are dropped, as parameters are laid out evenly)."""
+        pol = self.policy
+        return self._template_map(
+            lambda shape, axes, _: pol.spec_for_shape(axes, shape))
+
+    def init(self, generator: Optional[torch.Generator]
+             ) -> Dict[str, object]:
         """Random weights as the reference's ``init`` draws them (normal
         times the leaf's scale, ones for norms and D, zeros for biases,
         log U[1, 16] in fp32 for A_log), from ``generator`` on the
-        generator's device, stored on this model's device in its dtype.
-        Leaves are drawn in sorted key order."""
-        gdev = generator.device
+        generator's device, stored on this model's device in its dtype;
+        leaves are drawn in sorted key order. Under a mesh each rank draws
+        every leaf and keeps its own shard. With ``generator`` None the
+        leaves are uninitialised (``torch.empty``; A_log fp32), for a trace
+        under ``FakeTensorMode``."""
+        dev = self.device
 
-        def make(shape, scale):
-            if scale == -1.0:
-                return torch.ones(shape, dtype=self.dtype, device=self.device)
-            if scale == 0.0:
-                return torch.zeros(shape, dtype=self.dtype,
-                                   device=self.device)
-            if scale == -2.0:
+        def make(shape, axes, scale):
+            if generator is None:
+                t = torch.empty(shape, device=dev, dtype=torch.float32
+                                if scale == -2.0 else self.dtype)
+            elif scale == -1.0:
+                t = torch.ones(shape, dtype=self.dtype, device=dev)
+            elif scale == 0.0:
+                t = torch.zeros(shape, dtype=self.dtype, device=dev)
+            elif scale == -2.0:
                 u = torch.rand(shape, generator=generator,
-                               dtype=torch.float32, device=gdev)
-                return torch.log(u * 15.0 + 1.0).to(self.device)
-            t = torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=gdev)
-            return t.mul_(scale).to(device=self.device, dtype=self.dtype)
+                               dtype=torch.float32, device=generator.device)
+                t = torch.log(u * 15.0 + 1.0).to(dev)
+            else:
+                t = torch.randn(shape, generator=generator,
+                                dtype=torch.float32,
+                                device=generator.device)
+                t = t.mul_(scale).to(device=dev, dtype=self.dtype)
+            return self.policy.distribute(t, axes)
+        return self._template_map(make)
 
-        def walk(node):
-            return {k: walk(node[k]) if isinstance(node[k], dict)
-                    else make(*node[k]) for k in sorted(node)}
-        return walk(self.param_template())
+    def place_params(self, params):
+        """A whole params tree (every rank holds the same, e.g. converted
+        from the reference's) laid out on the policy's mesh by
+        ``param_specs``: each rank keeps its own shards, nothing is sent.
+        Without a mesh, ``params``."""
+        return self._placed(params, self.param_specs())
 
     def head_weight(self, params) -> torch.Tensor:
         if self.arch.tie_embeddings:
@@ -287,19 +446,20 @@ class LM:
 
     # -- layer bodies -------------------------------------------------------
     def _dense_layer_full(self, x, p, positions, return_cache=True):
-        a = self.arch
+        a, pol = self.arch, self.policy
         h = rms_norm(x, p["ln1"], a.norm_eps)
-        res = self_attention_full(h, p, a, positions=positions,
+        res = self_attention_full(h, p, a, pol, positions=positions,
                                   return_kv=return_cache)
         res, kv = res if return_cache else (res, None)
         x = x + res
         h = rms_norm(x, p["ln2"], a.norm_eps)
-        return x + gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act), kv
+        h = gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act)
+        return x + pol.constrain(h, ("batch", "seq_q", None)), kv
 
     def _dense_layer_decode(self, x, p, cache: AttnCache):
         a = self.arch
         h = rms_norm(x, p["ln1"], a.norm_eps)
-        res, cache = self_attention_decode(h, cache, p, a)
+        res, cache = self_attention_decode(h, cache, p, a, self.policy)
         x = x + res
         h = rms_norm(x, p["ln2"], a.norm_eps)
         return x + gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act), cache
@@ -307,12 +467,12 @@ class LM:
     def _moe_layer_full(self, x, p, positions, return_cache=True):
         a = self.arch
         h = rms_norm(x, p["ln1"], a.norm_eps)
-        res = self_attention_full(h, p, a, positions=positions,
+        res = self_attention_full(h, p, a, self.policy, positions=positions,
                                   return_kv=return_cache)
         res, kv = res if return_cache else (res, None)
         x = x + res
         h = rms_norm(x, p["ln2"], a.norm_eps)
-        out, aux = moe_ffn(h, p, a, self.capacity_factor)
+        out, aux = moe_ffn(h, p, a, self.policy, self.capacity_factor)
         if a.moe.n_shared_experts:
             out = out + shared_expert_ffn(h, p, a)
         return x + out, kv, aux
@@ -320,10 +480,11 @@ class LM:
     def _moe_layer_decode(self, x, p, cache: AttnCache):
         a = self.arch
         h = rms_norm(x, p["ln1"], a.norm_eps)
-        res, cache = self_attention_decode(h, cache, p, a)
+        res, cache = self_attention_decode(h, cache, p, a, self.policy)
         x = x + res
         h = rms_norm(x, p["ln2"], a.norm_eps)
-        out, aux = moe_ffn(h[:, None, :], p, a, self.capacity_factor)
+        out, aux = moe_ffn(h[:, None, :], p, a, self.policy,
+                           self.capacity_factor)
         out = out[:, 0]
         if a.moe.n_shared_experts:
             out = out + shared_expert_ffn(h, p, a)
@@ -332,7 +493,8 @@ class LM:
     def _cross_layer_full(self, x, p, frontend, return_cache=True):
         a = self.arch
         h = rms_norm(x, p["ln1"], a.norm_eps)
-        res = cross_attention_full(h, frontend, p, a, return_kv=return_cache)
+        res = cross_attention_full(h, frontend, p, a, self.policy,
+                                   return_kv=return_cache)
         res, kv = res if return_cache else (res, None)
         x = x + _gate(p["gate_attn"], x) * res
         h = rms_norm(x, p["ln2"], a.norm_eps)
@@ -342,7 +504,7 @@ class LM:
     def _cross_layer_decode(self, x, p, cross_kv):
         a = self.arch
         h = rms_norm(x, p["ln1"], a.norm_eps)
-        res = cross_attention_decode(h, cross_kv, p, a)
+        res = cross_attention_decode(h, cross_kv, p, a, self.policy)
         x = x + _gate(p["gate_attn"], x) * res
         h = rms_norm(x, p["ln2"], a.norm_eps)
         h = gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act)
@@ -350,13 +512,14 @@ class LM:
 
     def _mamba_layer_full(self, x, p, return_cache=True):
         h = rms_norm(x, p["ln"], self.arch.norm_eps)
-        res = mamba_block_full(h, p, self.arch, return_cache=return_cache)
+        res = mamba_block_full(h, p, self.arch, self.policy,
+                               return_cache=return_cache)
         res, cache = res if return_cache else (res, None)
         return x + res, cache
 
     def _mamba_layer_decode(self, x, p, cache: MambaCache):
         h = rms_norm(x, p["ln"], self.arch.norm_eps)
-        res, cache = mamba_block_decode(h, cache, p, self.arch)
+        res, cache = mamba_block_decode(h, cache, p, self.arch, self.policy)
         return x + res, cache
 
     # -- full-sequence forward ------------------------------------------------
@@ -366,14 +529,17 @@ class LM:
             # F.embedding, not indexing: the same rows, and on the CPU its
             # backward sums a repeated token's rows in a fixed order
             # (indexing's accumulates them in parallel, in any order)
-            embeds = F.embedding(tokens, params["embed"])
+            embeds = F.embedding(self._input(tokens, ("batch", None)),
+                                 _rows_whole(params["embed"]))
             if a.tie_embeddings:
                 embeds = embeds * math.sqrt(a.d_model)
+        else:
+            embeds = self._input(embeds, ("batch", None, None))
         x = embeds.to(self.dtype)
         if a.pos_emb == PosEmb.SINUSOIDAL:
             positions = torch.arange(x.shape[1], device=x.device)
             x = x + sinusoidal_pos(positions, a.d_model).to(x.dtype)
-        return x
+        return self.policy.constrain(x, ("batch", None, None))
 
     def _forward_full(self, params, x, frontend=None, return_cache=True):
         """x: (B, S, D) -> (final-normed hidden (B, S, D), per-segment raw
@@ -387,10 +553,12 @@ class LM:
         positions = torch.arange(x.shape[1], device=x.device)
         rc = return_cache
 
-        def run(body, *args):
+        def run(body, y, lp, *args):
+            def layer(y_, lp_, *a):
+                return body(y_, self._gathered(lp_), *a)
             if self.remat:
-                return checkpoint(body, *args, use_reentrant=False)
-            return body(*args)
+                return checkpoint(layer, y, lp, *args, use_reentrant=False)
+            return layer(y, lp, *args)
 
         def dense(y, lp):
             return run(self._dense_layer_full, y, lp, positions, rc)
@@ -464,12 +632,24 @@ class LM:
         in fp32 as the reference's ``preferred_element_type=float32``
         product, and are never rounded to bf16. For MoE the loss adds
         0.01 * lb_loss / n_layers."""
+        with self.replicating():
+            return self._train_loss(params, batch)
+
+    def _train_loss(self, params, batch):
+        pol = self.policy
         x = self._embed_inputs(params, batch.get("tokens"),
                                batch.get("embeds"))
-        h, _, aux = self._forward_full(params, x, batch.get("frontend"),
-                                       return_cache=False)
-        labels = batch["labels"]
-        w = self.head_weight(params).float()
+        h, _, aux = self._forward_full(
+            params, x, self._input(batch.get("frontend"),
+                                   ("batch", None, None)),
+            return_cache=False)
+        h = pol.constrain(h, ("batch", None, None))
+        labels = self._input(batch["labels"], ("batch", None))
+        # the head gathered over its FSDP axes in bf16, as the reference
+        # keeps it through the gathered product: left sharded over the
+        # batch's axes, the product would shard the vocab instead and
+        # gather every rank's logits
+        w = pol.constrain(self.head_weight(params), (None, "vocab")).float()
         b, s, d = h.shape
         chunk = min(self.loss_chunk or s, s)
         if s % chunk:
@@ -479,7 +659,8 @@ class LM:
         cnt = torch.zeros((), dtype=torch.int64, device=h.device)
         for c0 in range(0, s, chunk):
             lc = labels[:, c0:c0 + chunk]
-            logits = h[:, c0:c0 + chunk].float() @ w
+            logits = pol.constrain(h[:, c0:c0 + chunk].float() @ w,
+                                   ("batch", None, "vocab"))
             lse = torch.logsumexp(logits, dim=-1)
             tgt = torch.where(lc[..., None] == vocab, logits, 0.0).sum(-1)
             mask = lc >= 0
@@ -516,26 +697,42 @@ class LM:
         if frontend is None and any(g.kind == "vlm_super"
                                     for g in self.segments):
             raise ValueError(f"{self.arch.name}: prefill needs frontend=")
-        x = self._embed_inputs(params, tokens, embeds)
-        b, s, _ = x.shape
-        s_max = s_max or s
-        h, raw, aux = self._forward_full(params, x, frontend)
-        pos = s - 1 if logit_pos is None else logit_pos
-        logits = h[:, pos].float() @ self.head_weight(params).float()
-        cache = self._package_cache(raw, b, s, s_max)
+        with self.replicating():
+            x = self._embed_inputs(params, tokens, embeds)
+            b, s, _ = x.shape
+            s_max = s_max or s
+            frontend = self._input(frontend, ("batch", None, None))
+            h, raw, aux = self._forward_full(params, x, frontend)
+            pos = s - 1 if logit_pos is None else logit_pos
+            logits = h[:, pos].float() @ self.head_weight(params).float()
+            cache = self._package_cache(
+                raw, b, s, s_max, frontend.shape[1] if frontend is not None
+                else 0)
         return (logits, cache, aux) if return_aux else (logits, cache)
 
     def _attn_cache_from_kv(self, kv, b, s, s_max):
         a = self.arch
-        k, v = (F.pad(t.to(self.dtype), (0, 0, 0, 0, 0, s_max - s))
-                for t in kv)                     # (..., B, s_max, Hkv, hd)
-        rec = k.shape[:-4] + (b, self.recent_window, a.n_kv_heads,
-                              a.resolved_head_dim)
-        return {"k_big": k, "v_big": v,
-                "k_rec": k.new_zeros(rec), "v_rec": k.new_zeros(rec),
+
+        def big(t):                              # (..., B, s_max, Hkv, hd)
+            t = t.to(self.dtype)
+            if s_max == s:
+                return t
+            if isinstance(t, DTensor):
+                # padding a sequence-sharded dim moves every shard's
+                # positions: gather the sequence (no measured path pads)
+                t = t.redistribute(t.device_mesh, [
+                    Replicate() if pl == Shard(t.ndim - 3) else pl
+                    for pl in t.placements])
+            return F.pad(t, (0, 0, 0, 0, 0, s_max - s))
+        k, v = big(kv[0]), big(kv[1])
+        rec = torch.zeros(k.shape[:-4] + (b, self.recent_window,
+                                          a.n_kv_heads, a.resolved_head_dim),
+                          dtype=self.dtype, device=k.device)
+        return {"k_big": k, "v_big": v, "k_rec": rec, "v_rec": rec.clone(),
                 "big_len": s, "rec_len": 0}
 
-    def _package_cache(self, raw, b, s, s_max):
+    def _package_cache(self, raw, b, s, s_max, frontend_tokens=0):
+        """The prefill's per-segment caches, laid out by ``cache_specs``."""
         out = []
         for seg, c in zip(self.segments, raw):
             if seg.kind in _ATTN_KINDS:
@@ -552,11 +749,12 @@ class LM:
                 out.append({"dense": self._attn_cache_from_kv(kvs, b, s,
                                                               s_max),
                             "cross_kv": ckv})
-        return out
+        return self._placed(out, self.cache_specs(b, s_max, frontend_tokens))
 
     def init_cache(self, batch: int, s_max: int, frontend_tokens: int = 0):
-        """Zero cache (fresh generation); a VLM's cross K/V hold
-        ``frontend_tokens`` (default: the arch's ``n_frontend_tokens``)."""
+        """Zero cache (fresh generation), laid out by ``cache_specs``; a
+        VLM's cross K/V hold ``frontend_tokens`` (default: the arch's
+        ``n_frontend_tokens``)."""
         a = self.arch
         hd = a.resolved_head_dim
         dev = self.device
@@ -591,6 +789,60 @@ class LM:
                                        dtype=self.dtype, device=dev)
                 out.append({"dense": attn_cache(seg.n, seg.inner),
                             "cross_kv": (z(), z())})
+        return self._placed(out, self.cache_specs(batch, s_max,
+                                                  frontend_tokens))
+
+    def cache_specs(self, batch: int, s_max: int, frontend_tokens: int = 0):
+        """A spec tree matching ``init_cache(batch, s_max,
+        frontend_tokens)`` leaf for leaf (shape-aware; the lengths, plain
+        ints here, get ``PSpec()`` as the reference's scalars): the big
+        K/V sequence-sharded, the recent buffer batch-sharded alone."""
+        a = self.arch
+        pol = self.policy
+        hd = a.resolved_head_dim
+        w = self.recent_window
+
+        def attn_spec(*lead):
+            nl = (None,) * len(lead)
+            big = pol.spec_for_shape(nl + ("batch", "kv_seq", None, None),
+                                     lead + (batch, s_max, a.n_kv_heads, hd))
+            rec = pol.spec_for_shape(nl + ("batch", None, None, None),
+                                     lead + (batch, w, a.n_kv_heads, hd))
+            return {"k_big": big, "v_big": big, "k_rec": rec, "v_rec": rec,
+                    "big_len": PSpec(), "rec_len": PSpec()}
+
+        def mamba_spec(*lead):
+            nl = (None,) * len(lead)
+            s_cfg = a.ssm
+            return MambaCache(
+                ssm_state=pol.spec_for_shape(
+                    nl + ("batch", "ssm_heads", None, None),
+                    lead + (batch, a.n_ssm_heads, s_cfg.head_dim,
+                            s_cfg.d_state)),
+                conv_x=pol.spec_for_shape(
+                    nl + ("batch", None, "d_inner"),
+                    lead + (batch, s_cfg.d_conv - 1, a.d_inner)),
+                conv_bc=pol.spec_for_shape(
+                    nl + ("batch", None, None),
+                    lead + (batch, s_cfg.d_conv - 1,
+                            2 * s_cfg.ngroups * s_cfg.d_state)))
+
+        out = []
+        for seg in self.segments:
+            if seg.kind in _ATTN_KINDS:
+                out.append(attn_spec(seg.n))
+            elif seg.kind == "mamba":
+                out.append(mamba_spec(seg.n))
+            elif seg.kind == "hyb_super":
+                out.append({"mamba": mamba_spec(seg.n, seg.inner),
+                            "attn": attn_spec(seg.n)})
+            else:
+                nf = frontend_tokens or a.n_frontend_tokens
+                ckv = pol.spec_for_shape(
+                    (None, "batch", "frontend_seq", None, None),
+                    (seg.n, batch, nf, a.n_kv_heads, hd))
+                out.append({"dense": attn_spec(seg.n, seg.inner),
+                            "cross_kv": (ckv, ckv)})
         return out
 
     # -- decode -------------------------------------------------------------
@@ -619,8 +871,13 @@ class LM:
         """tokens: (B,) int64 -> (logits (B, V) fp32, new cache), and the
         summed MoE aux with ``return_aux`` (as ``prefill``). The input
         cache is left as it was."""
-        a = self.arch
-        x = params["embed"][tokens].to(self.dtype)
+        with self.replicating():
+            return self._decode_step(params, cache, tokens, return_aux)
+
+    def _decode_step(self, params, cache, tokens, return_aux):
+        a, pol = self.arch, self.policy
+        x = F.embedding(self._input(tokens, ("batch",)),
+                        _rows_whole(params["embed"])).to(self.dtype)
         if a.tie_embeddings:
             x = x * math.sqrt(a.d_model)
         if a.pos_emb == PosEmb.SINUSOIDAL:
@@ -628,6 +885,7 @@ class LM:
             pos = torch.tensor([c0["big_len"] + c0["rec_len"]],
                                device=x.device)
             x = x + sinusoidal_pos(pos, a.d_model)[0].to(x.dtype)
+        x = pol.constrain(x, ("batch", None))
         new_cache = []
         aux_sum = torch.zeros((2,), dtype=torch.float32, device=x.device)
         for i, seg in enumerate(self.segments):
@@ -637,18 +895,21 @@ class LM:
                 for li in range(seg.n):
                     if seg.kind == "moe":
                         x, ac, aux = self._moe_layer_decode(
-                            x, _layer(p, li), self._unpack_attn(c, li))
+                            x, self._gathered(_layer(p, li)),
+                            self._unpack_attn(c, li))
                         aux_sum = aux_sum + aux
                     else:
                         x, ac = self._dense_layer_decode(
-                            x, _layer(p, li), self._unpack_attn(c, li))
+                            x, self._gathered(_layer(p, li)),
+                            self._unpack_attn(c, li))
                     sites.append(ac)
                 new_cache.append(self._appended(c, sites))
             elif seg.kind == "mamba":
                 ncs = []
                 for li in range(seg.n):
                     x, m = self._mamba_layer_decode(
-                        x, _layer(p, li), c.map(lambda t: t[li]))
+                        x, self._gathered(_layer(p, li)),
+                        c.map(lambda t: t[li]))
                     ncs.append(m)
                 new_cache.append(MambaCache.stack(ncs))
             elif seg.kind == "vlm_super":
@@ -656,11 +917,11 @@ class LM:
                 for si in range(seg.n):
                     for j in range(seg.inner):
                         x, ac = self._dense_layer_decode(
-                            x, _layer(p["dense"], si, j),
+                            x, self._gathered(_layer(p["dense"], si, j)),
                             self._unpack_attn(cd, (si, j)))
                         sites.append(ac)
                     x = self._cross_layer_decode(
-                        x, _layer(p["cross"], si),
+                        x, self._gathered(_layer(p["cross"], si)),
                         tuple(t[si] for t in c["cross_kv"]))
                 new_cache.append({"dense": self._appended(cd, sites),
                                   "cross_kv": c["cross_kv"]})
@@ -670,23 +931,29 @@ class LM:
                     inner = []
                     for j in range(seg.inner):
                         x, m = self._mamba_layer_decode(
-                            x, _layer(p["mamba"], si, j),
+                            x, self._gathered(_layer(p["mamba"], si, j)),
                             c["mamba"].map(lambda t: t[si, j]))
                         inner.append(m)
                     supers.append(MambaCache.stack(inner))
                     x, ac = self._dense_layer_decode(
-                        x, p["attn"], self._unpack_attn(c["attn"], si))
+                        x, self._gathered(p["attn"]),
+                        self._unpack_attn(c["attn"], si))
                     sites.append(ac)
                 new_cache.append({"mamba": MambaCache.stack(supers),
                                   "attn": self._appended(c["attn"], sites)})
         x = rms_norm(x, params["final_ln"], a.norm_eps)
-        logits = x.float() @ self.head_weight(params).float()
+        logits = pol.constrain(x.float() @ self.head_weight(params).float(),
+                               ("batch", "vocab"))
         return (logits, new_cache, aux_sum) if return_aux \
             else (logits, new_cache)
 
     def maybe_flush(self, cache):
         """Flush recent -> big on every attention cache (run it every
         ``recent_window`` decode steps, before the buffer overflows)."""
+        with self.replicating():
+            return self._flush(cache)
+
+    def _flush(self, cache):
         def flush_attn(c):
             nc = flush_cache(self._unpack_attn(c))
             return {"k_big": nc.k_big, "v_big": nc.v_big,

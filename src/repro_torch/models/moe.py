@@ -1,4 +1,4 @@
-"""Mixture-of-Experts FFN, the single-rank path of the reference's
+"""Mixture-of-Experts FFN with expert parallelism, the port of
 ``repro.models.moe``.
 
 Each layer routes every token to its ``top_k`` experts (fp32 router,
@@ -10,14 +10,24 @@ back. Every shape is static, as in the traced reference: no host sync per
 layer.
 
 Expert counts are padded to a multiple of the expert-parallel degree with
-dummy experts whose router logits are -inf (``padded_experts``). The
-expert-parallel path is not ported: ``ep > 1`` raises."""
+dummy experts whose router logits are -inf (``padded_experts``).
+
+Under a policy whose "experts" axis is larger than one, the experts are
+sharded over the ``model`` mesh axis and the tokens only over the batch
+axes: each model rank runs ``_moe_local`` on its own ``n_pad / ep``
+experts from ``e_lo = rank * e_loc`` through ``local_map``, with a
+capacity sized per rank from its local tokens, and the ranks' outputs and
+aux (the load-balance loss weighted 1/ep) are summed over the model axis,
+one all-reduce a layer, as the reference's ``shard_map`` + ``psum``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed.sharding import NO_POLICY, Policy
 from repro_torch.models.common import _gelu_tanh, _silu, gated_mlp
 
 NEG_INF = -1e30
@@ -110,27 +120,50 @@ def _moe_local(x_flat, router_w, w_gate, w_up, w_down, *, top_k: int,
     return out, torch.stack([lb_loss, drops])
 
 
-def moe_ffn(x: torch.Tensor, p: dict, arch,
-            capacity_factor: Optional[float] = None, ep: int = 1
+def moe_ffn(x: torch.Tensor, p: dict, arch, policy: Policy = NO_POLICY,
+            capacity_factor: Optional[float] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out (B, S, D) in x's dtype, aux[2]). Capacity is
-    static: max(int(B * S * top_k / n_experts * cf), 4).
-
-    ``ep``, and ``_moe_local``'s ``n_pad`` and ``e_lo``, mirror the
-    reference's surface for the expert-parallel path (ROADMAP A11); on one
-    rank they are 1, n_experts and 0. That path is to take the place of
-    this branch, not to stand beside it."""
-    if ep > 1:
-        raise NotImplementedError("expert parallelism (ep > 1) is not "
-                                  "ported; the port runs one rank")
+    """x: (B, S, D) -> (out (B, S, D) in x's type, aux[2]). Capacity is
+    static: max(int(T * top_k / n_experts * cf), 4), with T the tokens of
+    one rank (all of them on one rank)."""
     moe = arch.moe
     b, s, d = x.shape
     cf = capacity_factor if capacity_factor is not None \
         else moe.capacity_factor
-    n_pad = padded_experts(moe.n_experts, ep)
+    ep = policy.axis_size("experts")
+    n_pad = padded_experts(moe.n_experts, max(ep, 1))
     if p["w_gate"].shape[0] != n_pad:
         raise ValueError(f"w_gate holds {p['w_gate'].shape[0]} experts, "
                          f"not {n_pad}")
+    if policy.mesh is not None and ep > 1:
+        mesh = policy.mesh
+        e_loc = n_pad // ep
+        t_loc = (b // max(policy.axis_size("batch"), 1)) * s
+        capacity = max(int(t_loc * moe.top_k / moe.n_experts * cf), 4)
+        e_lo = mesh.get_local_rank("model") * e_loc
+
+        def ranked(xb, rw, wg, wu, wd):
+            out, aux = _moe_local(
+                xb.reshape(-1, d), rw, wg, wu, wd, top_k=moe.top_k,
+                n_real=moe.n_experts, n_pad=n_pad, e_lo=e_lo,
+                capacity=capacity, act=arch.act)
+            scale = torch.tensor([1.0 / ep, 1.0], device=aux.device)
+            return out.reshape(xb.shape), aux * scale
+        names = mesh.mesh_dim_names
+        rows = policy.placements(("batch", None, None), x.shape)
+        whole = (Replicate(),) * len(names)
+        experts = policy.placements(("experts", None, None))
+        out, aux = local_map(
+            ranked, out_placements=(
+                [Partial() if a == "model" else pl
+                 for a, pl in zip(names, rows)],
+                [Partial() if a == "model" else Replicate() for a in names]),
+            in_placements=(rows, whole, experts, experts, experts),
+            device_mesh=mesh, redistribute_inputs=True)(
+            x, p["router"].float(), p["w_gate"], p["w_up"], p["w_down"])
+        out = out.redistribute(mesh, rows)
+        aux = aux.redistribute(mesh, whole)
+        return out.to(x.dtype), aux
     capacity = max(int(b * s * moe.top_k / moe.n_experts * cf), 4)
     out, aux = _moe_local(
         x.reshape(b * s, d), p["router"].float(), p["w_gate"], p["w_up"],
@@ -140,5 +173,6 @@ def moe_ffn(x: torch.Tensor, p: dict, arch,
 
 
 def shared_expert_ffn(x, p, arch):
-    """Always-on shared experts = one dense MLP of width d_shared."""
+    """Always-on shared experts = one dense MLP of width d_shared,
+    tensor-parallel through its weights' layout."""
     return gated_mlp(x, p["sh_gate"], p["sh_up"], p["sh_down"], arch.act)

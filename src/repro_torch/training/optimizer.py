@@ -6,7 +6,11 @@ device.
 Trees are nested dicts of tensors (the ``LM`` parameter layout), walked
 in sorted key order as JAX flattens them. Every function is functional,
 as the reference's are: it returns new tensors and updates none of its
-inputs in place."""
+inputs in place. Under a mesh the leaves are DTensors: the state is laid
+out like the params (as the reference shards ``mu``, ``nu`` and
+``master`` with the params' specs), and the global norm and the int8
+scale reduce across shards, each resolved to a plain scalar (``_whole``)
+before it is used."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +18,7 @@ import math
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +76,7 @@ def init_opt_state(params, compression: bool = False) -> OptState:
     error-feedback residual with ``compression``; the step on the params'
     device."""
     def f32(t):
-        return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+        return torch.zeros_like(t, dtype=torch.float32)
     dev = tree_leaves(params)[0].device
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
@@ -81,10 +86,17 @@ def init_opt_state(params, compression: bool = False) -> OptState:
         ef=tree_map(f32, params) if compression else None)
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A reduction of a DTensor (a pending sum or max over its shards)
+    resolved to the plain tensor every rank holds alike; a plain tensor
+    as it came."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def global_norm(tree) -> torch.Tensor:
     total = 0
     for t in tree_leaves(tree):
-        total = total + t.float().square().sum()
+        total = total + _whole(t.float().square().sum())
     return torch.sqrt(total)
 
 
@@ -135,7 +147,7 @@ def compress_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor symmetric int8 quantization -> (q, scale). ``round`` is
     half to even, as ``jnp.round``."""
     g32 = g.float()
-    scale = g32.abs().max() / 127.0 + 1e-12
+    scale = _whole(g32.abs().max()) / 127.0 + 1e-12
     q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int8)
     return q, scale
 

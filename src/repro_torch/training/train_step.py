@@ -9,13 +9,16 @@ step twice from the same state. Its phases run inside
 ``torch.profiler.record_function`` ranges named ``train_step.forward``,
 ``train_step.backward`` and ``train_step.optimizer``, so a profile of a
 step splits its device time by phase (a range costs nothing without a
-profiler)."""
+profiler). Under a mesh, params, state and batch are DTensors (the
+``LM``'s policy lays them out) and each gradient is laid out as its
+parameter before the optimizer reads it."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
 from repro_torch.models.model import LM
@@ -44,6 +47,14 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def _laid_out_like(g, t):
+    """A DTensor gradient laid out as its parameter (a pending sum over
+    the shards that shared the parameter reduced); else ``g``."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(t.placements):
+        return g.redistribute(t.device_mesh, t.placements)
+    return g
+
+
 def _value_and_grad(model: LM, params, batch):
     """(loss, grads in the params' types, metrics) of one batch. A leaf
     the loss does not read (an audio model's embedding table) gets a zero
@@ -51,10 +62,10 @@ def _value_and_grad(model: LM, params, batch):
     with record_function("train_step.forward"):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, metrics = model.train_loss(p, batch)
-    with record_function("train_step.backward"):
+    with record_function("train_step.backward"), model.replicating():
         flat = tree_leaves(p)
         gs = torch.autograd.grad(loss, flat, allow_unused=True)
-    it = iter(torch.zeros_like(t) if g is None else g
+    it = iter(torch.zeros_like(t) if g is None else _laid_out_like(g, t)
               for t, g in zip(flat, gs))
     grads = tree_map(lambda _: next(it), params)
     return loss.detach(), grads, {k: v.detach() for k, v in metrics.items()}

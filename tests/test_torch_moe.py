@@ -168,9 +168,40 @@ def test_moe_ffn_router_tie_matches_jax(param_dtype):
 
 
 def test_moe_ffn_refuses_expert_parallelism():
+    """Expert parallelism no longer refuses (it raised before it was
+    ported): a policy whose "experts" axis spans two ranks runs it (held
+    against the reference's sharded ``moe_ffn`` on real ranks in
+    ``tests/test_torch_dist.py``). On a fake process group of two ranks,
+    whose all-reduce leaves each rank's part as it is, rank 0's output
+    and aux are its own experts' share: ``_moe_local`` on experts [0, 4)
+    with the capacity of its tokens, the load-balance loss weighted 1/2.
+    What ``moe_ffn`` still refuses is an expert stack that is not the
+    padded count (ValueError)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.sharding import make_policy
+    from torch_dist_jobs import fake_world
     ja, ta, jl, tl = _moe_layer("qwen2-moe-a2.7b", "float32")
-    with pytest.raises(NotImplementedError):
-        moe.moe_ffn(torch.zeros((1, 4, ta.d_model)), tl, ta, ep=2)
+    x = _x((2, 8, ta.d_model), "float32")[1]
+    with fake_world(2) as mesh:
+        pol = make_policy(ta, ShapeSpec("t", "prefill", 8, 2), mesh)
+        assert pol.axis_size("experts") == 2
+        axes = {"router": (None, None), "w_gate": ("experts", None, None),
+                "w_up": ("experts", None, None),
+                "w_down": ("experts", None, None)}
+        p = {k: pol.distribute(tl[k], ax) for k, ax in axes.items()}
+        out, aux = moe.moe_ffn(pol.distribute(x, ("batch", None, None)), p,
+                               ta, pol)
+        want, waux = moe._moe_local(
+            x.reshape(16, -1), tl["router"].float(), tl["w_gate"][:4],
+            tl["w_up"][:4], tl["w_down"][:4], top_k=ta.moe.top_k,
+            n_real=8, n_pad=8, e_lo=0, capacity=max(int(16 * 2 / 8 * 1.25),
+                                                    4), act=ta.act)
+        assert tuple(p["w_gate"].to_local().shape)[0] == 4
+        torch.testing.assert_close(out.to_local(), want.reshape(x.shape),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(aux.to_local(),
+                                   waux * torch.tensor([0.5, 1.0]),
+                                   rtol=0, atol=0)
     with pytest.raises(ValueError):
         moe.moe_ffn(torch.zeros((1, 4, ta.d_model)),
                     dict(tl, w_gate=tl["w_gate"][:4]), ta)

@@ -592,9 +592,13 @@ def test_compressed_training_still_converges():
 
 
 def test_elastic_resharding_load(tmp_path):
-    """One device here: a checkpoint loads into whatever device and type
-    ``like`` holds (bf16 params into fp32 leaves); re-sharding onto a mesh
-    (``shardings=``) waits for ROADMAP A11."""
+    """A checkpoint loads into whatever device and type ``like`` holds
+    (bf16 params into fp32 leaves) and, with ``shardings=``, re-shards
+    onto a mesh (it raised before that was ported): here on rank 0 of a
+    fake process group of two ranks, each leaf by its spec (the embedding
+    by a (mesh, placements) pair), rank 0 keeps its shard of the saved
+    leaf, bit for bit. ``tests/test_torch_dist.py`` round-trips it on
+    real ranks."""
     arch, model, cfg, params, opt, dcfg = _setup()
     tt.save(str(tmp_path), 1, {"params": params})
     like = {"params": topt.tree_map(lambda t: t.float(), params)}
@@ -603,8 +607,28 @@ def test_elastic_resharding_load(tmp_path):
                     topt.tree_leaves(restored["params"])):
         assert b.dtype == torch.float32 and b.device == a.device
         assert torch.equal(a.float(), b)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tt.load(str(tmp_path), 1, like, shardings=like)
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.sharding import (PSpec, make_policy,
+                                                  placements)
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch_dist_jobs import fake_world
+    with fake_world(2) as mesh:
+        pol = make_policy(arch, ShapeSpec("t", "decode", 16, 2), mesh)
+        specs = LM(arch, pol, device="cpu").param_specs()
+        specs["embed"] = (mesh, placements(specs["embed"], mesh))
+        got, _ = tt.load(str(tmp_path), 1, like,
+                         shardings={"params": specs}, mesh=mesh)
+        sharded = 0
+        for a, b, sp in zip(topt.tree_leaves(like["params"]),
+                            topt.tree_leaves(got["params"]),
+                            topt.tree_leaves(specs)):
+            pl = placements(sp, mesh) if isinstance(sp, PSpec) else sp[1]
+            want = distribute_tensor(a, mesh, pl, src_data_rank=None)
+            assert isinstance(b, DTensor)
+            assert tuple(b.placements) == tuple(want.placements)
+            assert torch.equal(b.to_local(), want.to_local())
+            sharded += b.to_local().shape != a.shape
+        assert sharded
 
 
 # ---------------------------------------------------------------------------
@@ -662,9 +686,14 @@ def test_train_launcher_smoke_on_cpu(capsys):
 
 
 def test_train_launcher_refuses_full_size():
+    """Without ``--smoke`` the launcher trains at full size on the
+    production mesh (it raised before that was ported); on this world of
+    no ranks the mesh refuses, with the reference's RuntimeError."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(RuntimeError, match="need 256 devices"):
         train.main(["--device", "cpu"])
+    with pytest.raises(RuntimeError, match="need 512 devices"):
+        train.main(["--device", "cpu", "--multi-pod"])
 
 
 def test_train_example_resumes_to_the_same_params(tmp_path):

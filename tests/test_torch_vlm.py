@@ -164,9 +164,10 @@ def test_vlm_bf16_frontend_stays_bf16():
 
 
 def test_vlm_param_template_and_conversion_match_jax():
-    """The two-level vlm_super tree: the reference's leaf names and shapes
-    ({"dense": (n_super, inner, ...), "cross": (n_super, ...)}), and
-    ``params_from_jax_numpy`` key for key, value for value."""
+    """The two-level vlm_super tree: the reference's leaf names, shapes
+    ({"dense": (n_super, inner, ...), "cross": (n_super, ...)}) and
+    logical axes, and ``params_from_jax_numpy`` key for key, value for
+    value."""
     ja, ta = _archs("bfloat16", n_layers=6, frontend_tokens=16)
     ja = dataclasses.replace(ja, cross_attn_every=3)
     ta = dataclasses.replace(ta, cross_attn_every=3)
@@ -180,7 +181,8 @@ def test_vlm_param_template_and_conversion_match_jax():
                 for k, v in t.items()}
     assert shapes(tt, 0) == shapes(jt, 0)
     assert tt["seg0"]["dense"]["wq"][0] == (2, 2, 64, 64)
-    assert tt["seg0"]["cross"]["gate_attn"] == ((2, 1), 0.0)
+    assert tt["seg0"]["cross"]["gate_attn"] == \
+        ((2, 1), ("p_layers", None), 0.0) == jt["seg0"]["cross"]["gate_attn"]
     jp = JaxLM(ja).init(jax.random.key(0))
     tp = params_from_jax_numpy(jax.tree.map(np.asarray, jp))
     want, got = dict(_leaves(jp)), dict(_leaves(tp))
