@@ -6,7 +6,8 @@ beside its plain PyTorch version:
   flash_attention/   B2, GQA flash-attention forward (prefill, chunked
                      prefill)
   decode_attention/  B1, paged decode attention over the engine's page pool
-  ssd_scan/          B4, Mamba-2 SSD chunked scan (prefill)
+  ssd_scan/          B4, Mamba-2 SSD chunked scan (prefill, and training
+                     with a backward kernel)
   fastsim/           the whole-trace heartbeat loop of ``engine="jax"``
                      (``serving/fastsim_jax.py``)
 

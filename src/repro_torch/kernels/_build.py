@@ -143,7 +143,8 @@ def build() -> Path:
 def module():
     """The library imported as the extension module ``_kernels``: one
     function per kernel (``paged_decode``, ``flash_attention``,
-    ``rmsnorm``, ``ssd_scan``, ``whole_trace``, ``fastsim_chunk``), each
+    ``rmsnorm``, ``ssd_scan``, ``ssd_scan_bwd``, ``whole_trace``,
+    ``fastsim_chunk``), each
     taking its C entry point's arguments and raising ``RuntimeError`` on a
     CUDA error."""
     if _state.module is None:

@@ -118,6 +118,23 @@ PyObject* ssd_scan(PyObject*, PyObject* const* a, Py_ssize_t n) {
                 name);
 }
 
+// ssd_scan_bwd(x, dt, A, Bm, Cm, D, dy, dfin or None, entry, cum, dx, ddt,
+//              dA, dBm, dCm, dD, dinit, gst, dBCh, rows, chunk_sums, B, S,
+//              H, P, G, N, Q, bf16, stream)
+PyObject* ssd_scan_bwd(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  const char* name = "ssd_scan_bwd";
+  const Args in(a, n, "pppppppppppppppppppppiiiiiiiip", name);
+  if (!in.ok) return nullptr;
+  return result(ssd_scan_bwd_launch(
+                    in.p(0), in.p(1), in.p(2), in.p(3), in.p(4), in.p(5),
+                    in.p(6), in.p(7), in.p(8), in.p(9), in.p(10), in.p(11),
+                    in.p(12), in.p(13), in.p(14), in.p(15), in.p(16),
+                    in.p(17), in.p(18), in.p(19), in.p(20), in.i(21),
+                    in.i(22), in.i(23), in.i(24), in.i(25), in.i(26),
+                    in.i(27), in.i(28), in.p(29)),
+                name);
+}
+
 // whole_trace(arrival, l_in, l_real, rank, ttft_r, atgt_r, n_active, par,
 //             out_lo, out_f, beats, scratch, stats or None, n, W, B, C, hb,
 //             horizon, theta, gamma, ttft, atgt, aladdin, edf, tagged,
@@ -183,6 +200,8 @@ PyMethodDef methods[] = {
      "Launch kernel B3; raises RuntimeError on a CUDA error."},
     {"ssd_scan", fastcall<ssd_scan>(), METH_FASTCALL,
      "Launch kernel B4; raises RuntimeError on a CUDA error."},
+    {"ssd_scan_bwd", fastcall<ssd_scan_bwd>(), METH_FASTCALL,
+     "Launch kernel B4's backward; raises RuntimeError on a CUDA error."},
     {"whole_trace", fastcall<whole_trace>(), METH_FASTCALL,
      "Launch the whole-trace simulation core; raises RuntimeError on a "
      "CUDA error."},

@@ -176,8 +176,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
             t.requires_grad for t in (q, k_pages, v_pages)):
         raise RuntimeError(
             "paged_decode_attention: kernel B1 has no backward on CUDA "
-            "(ROADMAP.md, queue B, 'Backward for B4 and B1'); decode runs "
-            "under torch.no_grad()")
+            "(ROADMAP.md, queue B, 'Backward for B1'); decode runs under "
+            "torch.no_grad()")
     if q.dim() != 3 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         raise ValueError(f"paged_decode_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")

@@ -73,11 +73,13 @@
 //   mma.sync fragment layout so that one epilogue serves both; decays by
 //   expf.
 #include "common.cuh"
+#include "fma_gemm.cuh"
 #include "launch.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using repro::gemm;
 using repro::to_f32;
 
 constexpr int kThreads = 128;     // four warps, 16 rows each
@@ -172,45 +174,6 @@ __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
   const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
-}
-
-// fp32: acc += A B over k < K for the column tiles below n_live; A is
-// (M, K) stored [m][k] (kAKM false) or [k][m] (true), B is (K, N) stored
-// [n][k] (kBKN false) or [k][n] (true)
-template <bool kAKM, bool kBKN, int NT>
-__device__ __forceinline__ void gemm(float (&acc)[NT][4], const float* a,
-                                     int lda, const float* b, int ldb,
-                                     int m0, int K, int n_live,
-                                     const float* a_scale = nullptr) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    float a0 = kAKM ? a[k * lda + m0 + g] : a[(m0 + g) * lda + k];
-    float a1 = kAKM ? a[k * lda + m0 + g + 8] : a[(m0 + g + 8) * lda + k];
-    if (a_scale != nullptr) {  // A(m, k) scaled by a_scale[k]
-      a0 *= a_scale[k];
-      a1 *= a_scale[k];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = 8 * nt + 2 * t;
-      if (8 * nt < n_live) {
-        float b0, b1;
-        if constexpr (kBKN) {
-          const float2 v = *reinterpret_cast<const float2*>(b + k * ldb + n);
-          b0 = v.x;
-          b1 = v.y;
-        } else {
-          b0 = b[n * ldb + k];
-          b1 = b[(n + 1) * ldb + k];
-        }
-        acc[nt][0] = fmaf(a0, b0, acc[nt][0]);
-        acc[nt][1] = fmaf(a0, b1, acc[nt][1]);
-        acc[nt][2] = fmaf(a1, b0, acc[nt][2]);
-        acc[nt][3] = fmaf(a1, b1, acc[nt][3]);
-      }
-    }
-  }
 }
 
 // exp(a - b). The bf16 path takes a and b pre-scaled by log2(e) and the

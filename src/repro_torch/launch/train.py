@@ -8,10 +8,11 @@
 on the CUDA card, or with ``--device cpu`` on the CPU (the kernels' plain
 versions). The reduced copy has d_model 256, so its attention heads are
 64 wide, which kernel B2 takes; the reference's smoke model (d_model 64)
-has heads of 16. A Mamba-2 or hybrid arch trains on the CPU only: kernel
-B4 has no backward yet. Without ``--smoke`` it trains the arch at full
-size, as the reference does, on the production mesh
-(``make_production_mesh``, 16x16 or with ``--multi-pod`` 2x16x16) under
+has heads of 16. Every family trains on the card, Mamba-2 and hybrid
+archs too: kernel B4 runs its forward and its backward kernel under
+autograd, as B2 and B3 run their forward kernels. Without ``--smoke`` it
+trains the arch at full size, as the reference does, on the production
+mesh (``make_production_mesh``, 16x16 or with ``--multi-pod`` 2x16x16) under
 ``make_policy(arch, TRAIN_4K, mesh)``, over the world that ``torchrun``
 started (its environment initialises the process group); on a world of
 fewer ranks the mesh raises ``RuntimeError``. With ``--ckpt`` it resumes

@@ -1,6 +1,7 @@
 """Mamba-2 block (SSD), ported from ``repro.models.mamba2``: full-sequence
-prefill through ``ssd_scan`` (kernel B4 on CUDA) and the recurrent one-token
-decode through ``ssd_decode_step`` (plain torch, as in the reference).
+prefill and training through ``ssd_scan`` (kernel B4 on CUDA, with its
+backward kernel under autograd) and the recurrent one-token decode through
+``ssd_decode_step`` (plain torch, as in the reference).
 
 Tensor-parallel layout, as the reference's: the x/z/dt projections and
 the SSD heads are sharded over the ``model`` axis ("d_inner" /

@@ -33,7 +33,8 @@ vision tower is the reference's stub) and its cache keeps their K/V for
 decode. Everything runs in the parameter dtype (bf16 for the paper's
 models), apart from the reference's promotions (an fp32 frontend gives
 fp32 cross K/V). On CUDA attention prefill, self and cross, goes through
-kernel B2, every norm through B3 and every Mamba-2 prefill through B4;
+kernel B2, every norm through B3 and every Mamba-2 prefill through B4
+(in training too, B4's backward a kernel as well);
 the staged decode and the MoE routing and expert products
 (``models/moe.py``) are plain torch, as the reference's are jnp.
 

@@ -1,16 +1,19 @@
-"""Training on the card: kernels B2 and B3 under autograd.
+"""Training on the card: kernels B2, B3 and B4 under autograd.
 
-On CUDA, B2 (flash attention) and B3 (RMSNorm) run inside
-``torch.autograd.Function``s whose forward is the kernel and whose
-backward is the closed-form gradient in PyTorch ops
-(``flash_attention_bwd``, ``rmsnorm_bwd``). Each is held here, forward
-and gradients, against autograd of its plain version on the same CUDA
-tensors: B2 over the grid of ``tests/test_torch_cuda_flash.py`` (causal
-and not, query groups 1-8, head dims 64, 112 and 128, key counts 1, 63,
-64, 65, 1601 and 4096), B3 over the grid of its CPU sweep. B1 and B4 have
-no backward and must refuse an input that requires grad. A reduced fp32
-model's every parameter gets a finite gradient on the card, equal to the
-CPU's.
+On CUDA, B2 (flash attention), B3 (RMSNorm) and B4 (the SSD scan) run
+inside ``torch.autograd.Function``s whose forward is the kernel. B2's and
+B3's backward is the closed-form gradient in PyTorch ops
+(``flash_attention_bwd``, ``rmsnorm_bwd``); B4's is the backward kernel
+(``ssd_scan_backward``, held against its closed form ``ssd_scan_bwd`` over
+a grid in ``tests/test_torch_cuda_ssd.py``). B2 and B3 are held here,
+forward and gradients, against autograd of their plain versions on the
+same CUDA tensors: B2 over the grid of ``tests/test_torch_cuda_flash.py``
+(causal and not, query groups 1-8, head dims 64, 112 and 128, key counts
+1, 63, 64, 65, 1601 and 4096), B3 over the grid of its CPU sweep; B4's
+gradients equal the plain version's. B1 has no backward and must refuse
+an input that requires grad. A reduced fp32 model's every parameter gets a
+finite gradient on the card, equal to the CPU's: granite-3-8b and
+llama2-7b, and the SSM and hybrid families, mamba2-1.3b and zamba2-7b.
 
 These tests need an NVIDIA card and nvcc (the kernels are built at first
 use); without a card they skip. On the GPU machine:
@@ -29,7 +32,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import (ssd_chunked_ref,  # noqa: E402
+                                          ssd_scan, ssd_scan_backward)
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.training import DataConfig, batch_at_step  # noqa: E402
 from repro_torch.training.optimizer import tree_leaves, tree_map  # noqa: E402
@@ -186,18 +190,56 @@ def test_paged_decode_refuses_grad(card):
 
 
 def test_ssd_scan_refuses_grad(card):
+    """B4 no longer refuses an input that requires grad: its gradients
+    (forward kernel, then the backward kernel, one launch each) are finite
+    and equal the plain version's under autograd; under no_grad it
+    launches the forward alone."""
     b, s, h, p, g, n = 1, 64, 2, 16, 1, 16
     x = torch.randn(b, s, h, p, device=card, requires_grad=True)
     dt = torch.rand(b, s, h, device=card)
     a = -torch.rand(h, device=card)
     bm, cm = (torch.randn(b, s, g, n, device=card) for _ in range(2))
     d = torch.ones(h, device=card)
-    before = ssd_scan.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        ssd_scan(x, dt, a, bm, cm, d, chunk=32)
-    assert ssd_scan.launches == before
+    dy = torch.randn(b, s, h, p, device=card)
+    before = (ssd_scan.launches, ssd_scan_backward.launches)
+    (y, _), (want, _) = (fn(x, dt, a, bm, cm, d, chunk=32)
+                         for fn in (ssd_scan, ssd_chunked_ref))
+    (dx,), (dx_want,) = (torch.autograd.grad(t, [x], dy)
+                         for t in (y, want))
+    assert (ssd_scan.launches, ssd_scan_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert bool(torch.isfinite(dx).all())
+    _close(y, want, torch.float32)
+    torch.testing.assert_close(dx, dx_want, rtol=1e-4,
+                               atol=1e-4 * float(dx_want.abs().max()))
     with torch.no_grad():
         assert ssd_scan(x, dt, a, bm, cm, d, chunk=32)[0].shape == x.shape
+    assert ssd_scan_backward.launches == before[1] + 1
+
+
+def _cpu_and_card_grads(card, arch, counters):
+    """Every leaf's gradient of ``train_loss`` on one batch, on the CPU
+    and on the card from the same params; the launches of ``counters``
+    during the card's forward and backward."""
+    params = LM(arch, device="cpu").init(torch.Generator().manual_seed(1))
+    batch = batch_at_step(DataConfig(vocab=512, seq_len=128,
+                                     global_batch=2), 0)
+    grads, launched = {}, None
+    for dev in ("cpu", card):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        before = [c.launches for c in counters]
+        loss, _ = LM(arch, device=dev, loss_chunk=64).train_loss(p, b)
+        leaves = tree_leaves(p)
+        grads[str(dev)] = torch.autograd.grad(loss, leaves,
+                                              allow_unused=True)
+        if dev == card:
+            launched = [c.launches - n for c, n in zip(counters, before)]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert g is not None and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+    return launched
 
 
 @pytest.mark.parametrize("name,d_model", [("granite-3-8b", 256),
@@ -209,22 +251,23 @@ def test_every_parameter_gets_the_cpus_gradient(card, name, d_model):
     arch = dataclasses.replace(
         reduced(get_arch(name), n_layers=2, d_model=d_model, vocab=512),
         param_dtype="float32")
-    params = LM(arch, device="cpu").init(torch.Generator().manual_seed(1))
-    batch = batch_at_step(DataConfig(vocab=512, seq_len=128,
-                                     global_batch=2), 0)
-    grads = {}
-    for dev in ("cpu", card):
-        p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
-        b = {k: v.to(dev) for k, v in batch.items()}
-        n2, n3 = flash_attention.launches, rmsnorm.launches
-        loss, _ = LM(arch, device=dev, loss_chunk=64).train_loss(p, b)
-        leaves = tree_leaves(p)
-        grads[str(dev)] = torch.autograd.grad(loss, leaves,
-                                              allow_unused=True)
-        if dev == card:
-            assert flash_attention.launches - n2 == 2
-            assert rmsnorm.launches - n3 == 5
-    for g, w in zip(grads["cuda"], grads["cpu"]):
-        assert g is not None and bool(torch.isfinite(g).all())
-        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
-                                   atol=1e-4 * float(w.abs().max()))
+    assert _cpu_and_card_grads(card, arch, (flash_attention, rmsnorm)) \
+        == [2, 5]
+
+
+@pytest.mark.parametrize("name,n_layers,mamba,attn", [
+    ("mamba2-1.3b", 4, 4, 0), ("zamba2-7b", 5, 3, 2)])
+def test_ssm_every_parameter_gets_the_cpus_gradient(card, name, n_layers,
+                                                    mamba, attn):
+    """Reduced fp32 Mamba-2 and hybrid models (d_model 256: SSD heads of
+    16, a state of 16, chunks of 32 over 128 tokens; zamba2's shared
+    attention heads of 64): every leaf's card gradient exists, is finite
+    and equals the CPU's within 1e-4 of the leaf's largest; B4's forward
+    and backward kernels launched once per Mamba layer, B2 once per
+    attention site, B3 once per norm."""
+    arch = dataclasses.replace(
+        reduced(get_arch(name), n_layers=n_layers, d_model=256, vocab=512),
+        param_dtype="float32")
+    got = _cpu_and_card_grads(card, arch, (ssd_scan, ssd_scan_backward,
+                                           flash_attention, rmsnorm))
+    assert got == [mamba, mamba, attn, mamba + 2 * attn + 1]
