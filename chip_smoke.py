@@ -129,14 +129,19 @@
    ``serve_e2e``: autoscaling, an injected failure, a snapshot) run their
    ``main`` on the card; each finishes every request it submitted.
 15. Training kernel cases: B2 (bf16, B=2, 4096 x 4096 causal, 32/8 heads
-   of 128) and B3 (bf16, 8192 x 4096) at the training path's shapes,
-   forward and backward through their autograd Functions, held against
+   of 128, and zamba2-7b's 32/32 heads of 112) and B3 (bf16, 8192 x 4096)
+   at the training paths' shapes, forward and backward through their
+   autograd Functions (forward kernel, then backward kernel), held against
    the plain version's forward and its autograd gradients (2e-2), then
-   timed: the kernel's forward, its backward in PyTorch ops
-   (``flash_attention_bwd``, ``rmsnorm_bwd``), SDPA's or
-   ``F.rms_norm``'s forward and backward, each with its bound
-   (``flash_attention_bwd`` and ``rmsnorm_bwd`` rows). Then B4's backward
-   kernel (``kernels/ssd_scan/csrc/ssd_scan_bwd.cu``, six passes, the
+   timed: the forward kernel and the backward kernel
+   (``kernels/flash_attention/csrc/flash_attention_bwd.cu`` from the
+   forward's logsumexp, three passes, and
+   ``kernels/rmsnorm/csrc/rmsnorm_bwd.cu``, two passes: the
+   ``flash_attention_bwd`` and ``rmsnorm_bwd`` rows, a line of each pass's
+   device time), the closed form in PyTorch ops as their plain column,
+   SDPA's or ``F.rms_norm``'s forward and backward beside them, each with
+   its bound; a backward device time under its bound raises. Then B4's
+   backward kernel (``kernels/ssd_scan/csrc/ssd_scan_bwd.cu``, six passes, the
    backward of ``ssd_scan``'s autograd Function) at B4's cases of item 7
    and at the training shape (mamba2-1.3b's microbatch, bf16 B=2, S=4096,
    64 heads, P=64, N=128, Q=256, from a zero state): every input's
@@ -167,7 +172,8 @@
    memory, model FLOPs over step time over the bf16 peak, launches
    (counters zeroed just before the timed steps, gated per microbatch: B2
    once per attention layer, B3 once per norm, B4's forward once per
-   Mamba layer, twice under remat, B4's backward once per Mamba layer),
+   Mamba layer, twice under remat; the backward kernels B2's once per
+   attention layer, B3's once per norm, B4's once per Mamba layer),
    and from a profiled step the device time by kernel, the idle share and
    the forward / backward / optimizer shares of device time
    (``train_step.*`` profiler ranges).
@@ -280,6 +286,8 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:70",
     # no TPU kernel: the reference's gradient is XLA's autodiff of this
     "ssd_scan_backward": "src/repro/kernels/ssd_scan/ref.py:68",
+    "flash_attention_bwd": "src/repro/kernels/flash_attention/ref.py:106",
+    "rmsnorm_bwd": "src/repro/kernels/rmsnorm/ref.py:10",
     "fastsim_whole_trace": "src/repro/serving/fastsim_jax.py:185",
     "fastsim_chunk": "src/repro/serving/fastsim_jax.py:608",
 }
@@ -292,6 +300,9 @@ SOURCES = {
     "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
     "ssd_scan_backward":
         "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+    "flash_attention_bwd":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+    "rmsnorm_bwd": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
     "fastsim_whole_trace":
         "src/repro_torch/kernels/fastsim/csrc/whole_trace.cu",
     "fastsim_chunk": "src/repro_torch/kernels/fastsim/csrc/chunk.cu",
@@ -300,9 +311,16 @@ SOURCES = {
 PORT_KERNELS = {"paged_decode_attention": "paged_decode_kernel",
                 "flash_attention": "flash_fwd_", "rmsnorm": "rmsnorm_kernel",
                 "ssd_scan": "ssd_scan_kernel",
-                "ssd_scan_backward": "ssd_bwd_kernel"}
+                "ssd_scan_backward": "ssd_bwd_kernel",
+                "flash_attention_bwd": "flash_bwd_",
+                "rmsnorm_bwd": "rmsnorm_bwd_"}
+# the backward kernels' launch counters (the wrappers' names) by row name
+BWD_COUNTERS = {"flash_attention_bwd": "flash_attention_backward",
+                "rmsnorm_bwd": "rmsnorm_backward"}
 SSD_PASSES = 3                             # B4's kernels per call
 SSD_BWD_PASSES = 6                         # B4's backward kernels per call
+FLASH_BWD_PASSES = 3                       # B2's backward kernels (bf16)
+RMSNORM_BWD_PASSES = 2                     # B3's backward kernels
 # B4's cases (B, S, H, P, G, N, Q, type, initial state) at the mamba2-1.3b
 # and zamba2-7b prefill shapes, ragged S in fp32 and bf16, a two-group
 # case; the card-filling case at batch 1 comes last, so the seeded draws of
@@ -344,6 +362,7 @@ TRAIN_PATHS = (("granite-3-8b", 8, 5, False), ("mamba2-1.3b", 48, 5, True),
                ("zamba2-7b", 12, 2, False))
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 4, 2
 TRAIN_ATTN = (2, 4096, 32, 8, 128)
+TRAIN_ATTN_ZAMBA = (2, 4096, 32, 32, 112)   # zamba2-7b's shared block
 TRAIN_NORM = (8192, 4096)
 
 
@@ -1764,21 +1783,29 @@ def _retained_bwd(torch, fn, inputs, dout):
 
 
 def training_kernel_cases(torch, F, timer, smi):
-    """B2 and B3 at the training path's shapes (granite-3-8b: B=2,
-    4096-token sequences, 32/8 heads of 128; 8192 x 4096 norm rows), in
-    bf16, forward and backward under autograd: each wrapper's output and
-    gradients (the kernel's autograd Function) held against the plain
-    version's forward and its autograd gradients, then timed: the kernel's
-    forward, its backward in PyTorch ops (``flash_attention_bwd``,
-    ``rmsnorm_bwd``) and, beside them, SDPA's or ``F.rms_norm``'s forward
-    and backward, each with its bound. The backward's bound counts the five
-    products of attention's gradient (the scores recomputed) at the bf16
-    rate of its inputs, and the bytes of q, k, v, out and dout read and of
-    dq, dk and dv written once."""
+    """B2 and B3 at the training paths' shapes (granite-3-8b: B=2,
+    4096-token sequences, 32/8 heads of 128; zamba2-7b's shared block: 32/32
+    heads of 112; 8192 x 4096 norm rows), in bf16, forward and backward
+    under autograd: each wrapper's output and gradients (the kernel's
+    autograd Function: the forward kernel, then the backward kernel) held
+    against the plain version's forward and its autograd gradients, then
+    timed: the forward kernel, and the backward kernel
+    (``flash_attention_backward`` from the forward's logsumexp,
+    ``rmsnorm_backward``) as the ``flash_attention_bwd`` / ``rmsnorm_bwd``
+    rows, with the closed form in PyTorch ops (``flash_attention_bwd``,
+    ``rmsnorm_bwd``) as their plain column and SDPA's or ``F.rms_norm``'s
+    backward beside them, each with its bound; a line of each backward
+    pass's device time. The backward's bound counts the five products of
+    attention's gradient (the scores recomputed) at the bf16 rate of its
+    inputs, and the bytes of q, k, v, out and dout read and of dq, dk and
+    dv written once; a device time under a bound raises."""
     from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward,
                                                      flash_attention_bwd,
                                                      flash_attention_ref)
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd, rmsnorm_ref
+    from repro_torch.kernels.flash_attention.ops import _launch
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_backward,
+                                             rmsnorm_bwd, rmsnorm_ref)
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = []
@@ -1795,50 +1822,63 @@ def training_kernel_cases(torch, F, timer, smi):
                                       (out,) + grads, (wout,) + wgrads)]
         return errs[0], max(errs[1:])
 
-    b, s, hq, hkv, d = TRAIN_ATTN
-    q, dout = randn(b, s, hq, d), randn(b, s, hq, d)
-    k, v = randn(b, s, hkv, d), randn(b, s, hkv, d)
-    case = f"B={b} Sq={s} Skv={s} H={hq}/{hkv} D={d} (training)"
-    err_f, err_b = held(
-        "flash " + case,
-        _fwd_bwd(torch, lambda *a: flash_attention(*a, causal=True),
-                 (q, k, v), dout),
-        _fwd_bwd(torch, lambda *a: flash_attention_ref(*a, causal=True),
-                 (q, k, v), dout))
-    out = flash_attention(q, k, v, causal=True)
-    qt, kt, vt, dt = (t.transpose(1, 2) for t in (q, k, v, dout))
+    def under_bound(row):
+        if row["device_ms"] < row["bound_ms"]:
+            raise AssertionError(f"{row['kernel']} {row['case']}: device "
+                                 f"time {row['device_ms']} ms under its "
+                                 f"bound {row['bound_ms']} ms")
 
-    def kern_f():
-        return flash_attention(q, k, v, causal=True)
+    for b, s, hq, hkv, d, tag in (TRAIN_ATTN + ("training",),
+                                  TRAIN_ATTN_ZAMBA + ("zamba2 training",)):
+        q, dout = randn(b, s, hq, d), randn(b, s, hq, d)
+        k, v = randn(b, s, hkv, d), randn(b, s, hkv, d)
+        case = f"B={b} Sq={s} Skv={s} H={hq}/{hkv} D={d} ({tag})"
+        err_f, err_b = held(
+            "flash " + case,
+            _fwd_bwd(torch, lambda *a: flash_attention(*a, causal=True),
+                     (q, k, v), dout),
+            _fwd_bwd(torch, lambda *a: flash_attention_ref(*a, causal=True),
+                     (q, k, v), dout))
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+        out = _launch(q, k, v, True, 0, None, None, lse)
+        qt, kt, vt, dt = (t.transpose(1, 2) for t in (q, k, v, dout))
 
-    def kern_b():
-        return flash_attention_bwd(q, k, v, out, dout, causal=True)
+        def kern_f():
+            return flash_attention(q, k, v, causal=True)
 
-    def lib_f():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-    pairs = s * (s + 1) / 2
-    fwd_flops = 4.0 * b * pairs * hq * d
-    fwd_bytes = b * (2 * s * hq * d + 2 * s * hkv * d) * 2
-    record(cases, "flash_attention", case, "bf16", err_f, timer(kern_f),
-           timer(lambda: flash_attention_ref(q, k, v, causal=True)),
-           timer(lib_f), fwd_bytes, {"bf16": fwd_flops},
-           dev=(device_ms(torch, kern_f, n=10,
-                          stem=PORT_KERNELS["flash_attention"]),
-                device_ms(torch, lib_f, n=10)))
-    plain_b = _retained_bwd(
-        torch, lambda *a: flash_attention_ref(*a, causal=True), (q, k, v),
-        dout)
-    p_ms = timer(plain_b)
-    del plain_b
-    lib_b = _retained_bwd(torch, lambda *a: F.scaled_dot_product_attention(
-        *a, is_causal=True, enable_gqa=True), (qt, kt, vt), dt)
-    record(cases, "flash_attention_bwd", case, "bf16", err_b, timer(kern_b),
-           p_ms, timer(lib_b), 2 * fwd_bytes, {"bf16": 2.5 * fwd_flops},
-           dev=(device_ms(torch, kern_b, n=3), device_ms(torch, lib_b, n=5)))
-    del lib_b, out
-    gc.collect()
-    torch.cuda.empty_cache()
+        def kern_b():
+            return flash_attention_backward(q, k, v, out, dout, lse,
+                                            causal=True)
+
+        def lib_f():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        pairs = s * (s + 1) / 2
+        fwd_flops = 4.0 * b * pairs * hq * d
+        fwd_bytes = b * (2 * s * hq * d + 2 * s * hkv * d) * 2
+        record(cases, "flash_attention", case, "bf16", err_f, timer(kern_f),
+               timer(lambda: flash_attention_ref(q, k, v, causal=True)),
+               timer(lib_f), fwd_bytes, {"bf16": fwd_flops},
+               dev=(device_ms(torch, kern_f, n=10,
+                              stem=PORT_KERNELS["flash_attention"]),
+                    device_ms(torch, lib_f, n=10)))
+        k_ms = timer(kern_b)
+        log(f"[flash_attention_bwd passes] {case}: " + json.dumps(pass_ms(
+            torch, kern_b, PORT_KERNELS["flash_attention_bwd"])))
+        k_dev = device_ms(torch, kern_b, n=10,
+                          stem=PORT_KERNELS["flash_attention_bwd"],
+                          per_call=FLASH_BWD_PASSES)
+        p_ms = timer(lambda: flash_attention_bwd(q, k, v, out, dout,
+                                                 causal=True, lse=lse))
+        lib_b = _retained_bwd(torch, lambda *a: F.scaled_dot_product_attention(
+            *a, is_causal=True, enable_gqa=True), (qt, kt, vt), dt)
+        record(cases, "flash_attention_bwd", case, "bf16", err_b, k_ms,
+               p_ms, timer(lib_b), 2 * fwd_bytes, {"bf16": 2.5 * fwd_flops},
+               dev=(k_dev, device_ms(torch, lib_b, n=5)))
+        under_bound(cases[-1])
+        del lib_b, out, lse, q, k, v, dout, qt, kt, vt, dt
+        gc.collect()
+        torch.cuda.empty_cache()
 
     rows, dm = TRAIN_NORM
     x, dy, w = randn(rows, dm), randn(rows, dm), randn(dm)
@@ -1855,22 +1895,25 @@ def training_kernel_cases(torch, F, timer, smi):
         return F.rms_norm(x, (dm,), w, 1e-5)
 
     def norm_b():
-        return rmsnorm_bwd(x, w, dy, None, 1e-5)
+        return rmsnorm_backward(x, w, dy, None, 1e-5)
     n = rows * dm
     record(cases, "rmsnorm", case, "bf16", err_f, timer(norm_f),
            timer(lambda: rmsnorm_ref(x, w, None, 1e-5)), timer(lib_nf),
            (2 * n + dm) * 2, {"bf16": 4 * n},
            dev=(device_ms(torch, norm_f, stem=PORT_KERNELS["rmsnorm"]),
                 device_ms(torch, lib_nf)))
-    plain_nb = _retained_bwd(
-        torch, lambda *a: rmsnorm_ref(*a, eps=1e-5), (x, w), dy)
+    log(f"[rmsnorm_bwd passes] {case}: " + json.dumps(pass_ms(
+        torch, norm_b, PORT_KERNELS["rmsnorm_bwd"])))
     lib_nb = _retained_bwd(
         torch, lambda *a: F.rms_norm(a[0], (dm,), a[1], 1e-5), (x, w), dy)
     record(cases, "rmsnorm_bwd", case, "bf16", err_b, timer(norm_b),
-           timer(plain_nb), timer(lib_nb), (3 * n + 2 * dm) * 2,
-           {"bf16": 8 * n},
-           dev=(device_ms(torch, norm_b), device_ms(torch, lib_nb)))
-    del plain_nb, lib_nb
+           timer(lambda: rmsnorm_bwd(x, w, dy, None, 1e-5)), timer(lib_nb),
+           (3 * n + 2 * dm) * 2, {"bf16": 8 * n},
+           dev=(device_ms(torch, norm_b, stem=PORT_KERNELS["rmsnorm_bwd"],
+                          per_call=RMSNORM_BWD_PASSES),
+                device_ms(torch, lib_nb)))
+    under_bound(cases[-1])
+    del lib_nb
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[train kernels] card {smi}")
@@ -1883,7 +1926,7 @@ def training_reference_check(torch):
     SSD heads of 16, a state of 16, chunks of 32) and zamba2-7b (5 layers:
     3 Mamba layers and 2 sites of the shared attention block), from the
     same params and batches on the card (kernels B2, B3 and B4 under
-    autograd, B4's backward a kernel too) and on the CPU (plain versions):
+    autograd, each backward a kernel too) and on the CPU (plain versions):
     every leaf's gradient on the card exists and is
     finite and agrees with the CPU's within 1e-4 of the leaf's largest
     value, the losses of 3 train steps (2 microbatches, AdamW, lr 1e-3)
@@ -2041,8 +2084,9 @@ def training_path(torch, counters, smi, name, layers, steps, remat):
     attention layer (a hybrid's shared block once per site), B3 once per
     norm (two an attention layer, one a Mamba layer, and the final one),
     B4's forward once per Mamba layer, each layer body's kernels twice
-    under remat (its forward again in the backward), and B4's backward
-    kernel once per Mamba layer; nothing else. Logs step ms, tokens/s,
+    under remat (its forward again in the backward), and the backward
+    kernels once per layer each: B2's once per attention layer, B3's once
+    per norm, B4's once per Mamba layer; nothing else. Logs step ms, tokens/s,
     losses and grad norms (finite, as a gate), peak memory, model FLOPs per
     step (6 per parameter and token, plus attention's) over step time over
     the card's bf16 peak, and from a profiled step the device time by
@@ -2106,7 +2150,9 @@ def training_path(torch, counters, smi, name, layers, steps, remat):
     want.update(flash_attention=micro * body * attn,
                 rmsnorm=micro * (body * (mamba + 2 * attn) + 1),
                 ssd_scan=micro * body * mamba,
-                ssd_scan_backward=micro * mamba)
+                ssd_scan_backward=micro * mamba,
+                flash_attention_backward=micro * attn,
+                rmsnorm_backward=micro * (mamba + 2 * attn + 1))
     want = {k: v for k, v in want.items() if k in launches}
     if per_step != want or launches != {k: steps * v
                                         for k, v in want.items()}:
@@ -3514,8 +3560,9 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import paged_decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_backward
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_backward
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3612,13 +3659,17 @@ def main() -> int:
     t0 = time.perf_counter()
     training_reference_check(torch)
     log(f"[train reference] {time.perf_counter() - t0:.1f}s wall")
-    counters += (ssd_scan_backward,)
+    counters += (ssd_scan_backward, flash_attention_backward,
+                 rmsnorm_backward)
     for name, layers, steps, remat in TRAIN_PATHS:
         t0 = time.perf_counter()
         got = training_path(torch, counters, smi, name, layers, steps,
                             remat)
         if name == "mamba2-1.3b":
             launches["ssd_scan_backward"] = got["ssd_scan_backward"]
+        if name == "granite-3-8b":
+            for row, counter in BWD_COUNTERS.items():
+                launches[row] = got[counter]
         log(f"[train {name}] path ({layers} layers): "
             f"{time.perf_counter() - t0:.1f}s wall")
     train_example_on_card(torch)
@@ -3645,10 +3696,14 @@ def main() -> int:
                       "ssd_scan": "B=4 S=2048 H=64 P=64 G=1 N=128 Q=256 "
                                   "init",
                       "ssd_scan_backward": "B=2 S=4096 H=64 P=64 G=1 N=128 "
-                                           "Q=256"}
+                                           "Q=256",
+                      "flash_attention_bwd": "B=2 Sq=4096 Skv=4096 H=32/8 "
+                                             "D=128 (training)",
+                      "rmsnorm_bwd": "8192x4096 (training)"}
     kernels = []
     for name in ("paged_decode_attention", "flash_attention", "rmsnorm",
-                 "ssd_scan", "ssd_scan_backward"):
+                 "ssd_scan", "ssd_scan_backward", "flash_attention_bwd",
+                 "rmsnorm_bwd"):
         rep = next(c for c in cases if c["kernel"] == name
                    and c["case"] == representative[name])
         kernels.append({

@@ -2,9 +2,10 @@
 serving path and one for the Scenario API's compiled simulation core, each
 beside its plain PyTorch version:
 
-  rmsnorm/           B3, fused RMSNorm (+ residual)
+  rmsnorm/           B3, fused RMSNorm (+ residual), and its backward
+                     kernel (training)
   flash_attention/   B2, GQA flash-attention forward (prefill, chunked
-                     prefill)
+                     prefill, training), and its backward kernel
   decode_attention/  B1, paged decode attention over the engine's page pool
   ssd_scan/          B4, Mamba-2 SSD chunked scan (prefill, and training
                      with a backward kernel)

@@ -16,17 +16,37 @@ int paged_decode_launch(const void* q, const void* k_pages,
                         int max_pages, int split_pages, float scale,
                         int bf16, void* stream);
 
-// B2: causal/offset flash attention forward (flash_attention/csrc)
+// B2: causal/offset flash attention forward (flash_attention/csrc); lse
+// (B, Hq, Sq) fp32 or null: each row's logsumexp, for the backward
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, const void* kv_len, int B, int Sq,
-                           int Skv, int Hq, int Hkv, int D, int q_offset,
-                           int causal, float scale, int block_q, int bf16_in,
-                           void* stream);
+                           void* o, void* lse, const void* kv_len, int B,
+                           int Sq, int Skv, int Hq, int Hkv, int D,
+                           int q_offset, int causal, float scale, int block_q,
+                           int bf16_in, void* stream);
+
+// B2's backward, three passes (flash_attention/csrc/flash_attention_bwd.cu):
+// lse is the forward's; dq_acc (B, Sq, Hq, D) fp32 (dq itself for fp32
+// inputs) and delta (B, Hq, Sq) fp32 are its scratch
+int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
+                               const void* o, const void* dout,
+                               const void* lse, const void* kv_len, void* dq,
+                               void* dk, void* dv, void* dq_acc, void* delta,
+                               int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                               int q_offset, int causal, float scale,
+                               int bf16_in, void* stream);
 
 // B3: RMSNorm with an optional residual (rmsnorm/csrc)
 int rmsnorm_launch(const void* x, const void* r, const void* w, void* y,
                    int rows, int d, float eps, int x_bf16, int w_bf16,
                    void* stream);
+
+// B3's backward, two passes (rmsnorm/csrc/rmsnorm_bwd.cu): dx in x's type
+// (also the residual's gradient), dw in w's type; part (ctas, d) fp32 is
+// its scratch
+int rmsnorm_bwd_launch(const void* x, const void* r, const void* w,
+                       const void* dy, void* dx, void* dw, void* part,
+                       int rows, int d, int ctas, float eps, int x_bf16,
+                       int w_bf16, void* stream);
 
 // B4: Mamba-2 SSD chunked scan, three passes (ssd_scan/csrc)
 int ssd_scan_launch(const void* x, const void* dt, const void* A,

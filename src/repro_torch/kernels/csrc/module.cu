@@ -81,16 +81,33 @@ PyObject* paged_decode(PyObject*, PyObject* const* a, Py_ssize_t n) {
                 name);
 }
 
-// flash_attention(q, k, v, o, kv_len or None, B, Sq, Skv, Hq, Hkv, D,
-//                 q_offset, causal, scale, block_q, bf16, stream)
+// flash_attention(q, k, v, o, lse or None, kv_len or None, B, Sq, Skv, Hq,
+//                 Hkv, D, q_offset, causal, scale, block_q, bf16, stream)
 PyObject* flash_attention(PyObject*, PyObject* const* a, Py_ssize_t n) {
   const char* name = "flash_attention";
-  const Args in(a, n, "pppppiiiiiiiifiip", name);
+  const Args in(a, n, "ppppppiiiiiiiifiip", name);
   if (!in.ok) return nullptr;
   return result(flash_attention_launch(
-                    in.p(0), in.p(1), in.p(2), in.p(3), in.p(4), in.i(5),
+                    in.p(0), in.p(1), in.p(2), in.p(3), in.p(4), in.p(5),
                     in.i(6), in.i(7), in.i(8), in.i(9), in.i(10), in.i(11),
-                    in.i(12), in.f(13), in.i(14), in.i(15), in.p(16)),
+                    in.i(12), in.i(13), in.f(14), in.i(15), in.i(16),
+                    in.p(17)),
+                name);
+}
+
+// flash_attention_bwd(q, k, v, o, dout, lse, kv_len or None, dq, dk, dv,
+//                     dq_acc, delta, B, Sq, Skv, Hq, Hkv, D, q_offset,
+//                     causal, scale, bf16, stream)
+PyObject* flash_attention_bwd(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  const char* name = "flash_attention_backward";
+  const Args in(a, n, "ppppppppppppiiiiiiiifip", name);
+  if (!in.ok) return nullptr;
+  return result(flash_attention_bwd_launch(
+                    in.p(0), in.p(1), in.p(2), in.p(3), in.p(4), in.p(5),
+                    in.p(6), in.p(7), in.p(8), in.p(9), in.p(10), in.p(11),
+                    in.i(12), in.i(13), in.i(14), in.i(15), in.i(16),
+                    in.i(17), in.i(18), in.i(19), in.f(20), in.i(21),
+                    in.p(22)),
                 name);
 }
 
@@ -101,6 +118,19 @@ PyObject* rmsnorm(PyObject*, PyObject* const* a, Py_ssize_t n) {
   if (!in.ok) return nullptr;
   return result(rmsnorm_launch(in.p(0), in.p(1), in.p(2), in.p(3), in.i(4),
                                in.i(5), in.f(6), in.i(7), in.i(8), in.p(9)),
+                name);
+}
+
+// rmsnorm_bwd(x, r or None, w, dy, dx, dw, part, rows, d, ctas, eps, x_bf16,
+//             w_bf16, stream)
+PyObject* rmsnorm_bwd(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  const char* name = "rmsnorm_backward";
+  const Args in(a, n, "pppppppiiifiip", name);
+  if (!in.ok) return nullptr;
+  return result(rmsnorm_bwd_launch(in.p(0), in.p(1), in.p(2), in.p(3),
+                                   in.p(4), in.p(5), in.p(6), in.i(7),
+                                   in.i(8), in.i(9), in.f(10), in.i(11),
+                                   in.i(12), in.p(13)),
                 name);
 }
 
@@ -196,8 +226,12 @@ PyMethodDef methods[] = {
      "Launch kernel B1; raises RuntimeError on a CUDA error."},
     {"flash_attention", fastcall<flash_attention>(), METH_FASTCALL,
      "Launch kernel B2; raises RuntimeError on a CUDA error."},
+    {"flash_attention_bwd", fastcall<flash_attention_bwd>(), METH_FASTCALL,
+     "Launch kernel B2's backward; raises RuntimeError on a CUDA error."},
     {"rmsnorm", fastcall<rmsnorm>(), METH_FASTCALL,
      "Launch kernel B3; raises RuntimeError on a CUDA error."},
+    {"rmsnorm_bwd", fastcall<rmsnorm_bwd>(), METH_FASTCALL,
+     "Launch kernel B3's backward; raises RuntimeError on a CUDA error."},
     {"ssd_scan", fastcall<ssd_scan>(), METH_FASTCALL,
      "Launch kernel B4; raises RuntimeError on a CUDA error."},
     {"ssd_scan_bwd", fastcall<ssd_scan_bwd>(), METH_FASTCALL,

@@ -6,6 +6,14 @@
 // runtime `q_offset` and per-sequence `kv_len`, so the engine's chunked
 // prefill runs here too (the JAX engine used the jnp reference for it).
 //
+// Under autograd the forward also writes each query row's logsumexp, which
+// the backward (flash_attention_bwd.cu) reads instead of recomputing it:
+//   lse: (B, Hq, Sq) fp32, in natural-log units of the scaled scores,
+//   lse[b, h, i] = log(sum over the keys row i sees of exp(scale q_i.k_j)),
+//   and +inf for a row that sees no key (kv_len[b] == 0), so that the
+//   backward's exp(scale q.k - lse) is 0 on every key of such a row.
+// Without the pointer (inference) nothing is written and nothing changes.
+//
 //   q: (B, Sq, Hq, D), k/v: (B, Skv, Hkv, D), out: (B, Sq, Hq, D), one type
 //   (fp32 or bf16), Hq % Hkv == 0, D in {64, 128}, or 112 in bf16 (the
 //   head of zamba2-7b's shared attention block). Query row i sits at
@@ -70,17 +78,20 @@ using bf16 = __nv_bfloat16;
 
 // A query row that sees no key (kv_len[b] <= 0): the plain versions
 // softmax Skv logits of -1e30 each, which is uniform, so every row of the
-// block is the mean of V over all Skv keys (C7).
+// block is the mean of V over all Skv keys (C7). Its logsumexp (when `lp`,
+// the row's head in `lse`, is given) is the +inf that marks such a row.
 template <typename T>
 __device__ void mean_v_rows(const T* vp, size_t kv_row, int Skv, int D,
-                            T* op, size_t q_row, int r0, int r1, int tid,
-                            int n_threads) {
+                            T* op, size_t q_row, float* lp, int r0, int r1,
+                            int tid, int n_threads) {
   for (int d = tid; d < D; d += n_threads) {
     float s = 0.f;
     for (int k = 0; k < Skv; ++k) s += repro::to_f32(vp[k * kv_row + d]);
     const T m = repro::from_f32<T>(Skv > 0 ? s / Skv : 0.f);
     for (int r = r0; r < r1; ++r) op[r * q_row + d] = m;
   }
+  if (lp != nullptr)
+    for (int r = r0 + tid; r < r1; r += n_threads) lp[r] = INFINITY;
 }
 
 // ---- fp32 kernel (CUDA cores) -------------------------------------------
@@ -112,6 +123,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse,
                          const int* __restrict__ kv_len, int Sq, int Skv,
                          int Hq, int Hkv, int q_offset, int causal,
                          float scale) {
@@ -134,8 +146,10 @@ __global__ void __launch_bounds__(kThreads)
   const float* kp = k + static_cast<size_t>(b) * Skv * kv_row + hk * D;
   const float* vp = v + static_cast<size_t>(b) * Skv * kv_row + hk * D;
   float* op = o + static_cast<size_t>(b) * Sq * q_row + h * D;
+  float* lp = lse != nullptr ? lse + (static_cast<size_t>(b) * Hq + h) * Sq
+                             : nullptr;
   if (kv_len != nullptr && kv_len[b] <= 0) {
-    mean_v_rows(vp, kv_row, Skv, D, op, q_row, q0, min(q0 + kBQ, Sq),
+    mean_v_rows(vp, kv_row, Skv, D, op, q_row, lp, q0, min(q0 + kBQ, Sq),
                 threadIdx.x, blockDim.x);
     return;
   }
@@ -257,6 +271,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         op[qr * q_row + g * 64 + tx * 4 + e] = acc[i][g * 4 + e] * inv;
+    if (lp != nullptr && tx == 0)
+      lp[qr] = l_run[i] > 0.f ? m[i] + logf(l_run[i]) : INFINITY;
   }
 }
 
@@ -426,6 +442,7 @@ __global__ void __launch_bounds__(TcConfig<D, NC>::THREADS,
                           const __grid_constant__ CUtensorMap tm_v,
                           const __grid_constant__ CUtensorMap tm_o,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse,
                           const int* __restrict__ kv_len, int B, int Sq,
                           int Skv, int Hq, int Hkv, int q_offset, int causal,
                           float scale_log2) {
@@ -540,12 +557,15 @@ __global__ void __launch_bounds__(TcConfig<D, NC>::THREADS,
       if (L >= n_tiles) continue;
       const Tile tl = tile_at(L, n_qt, Hq, B, C::BQ);
       const int wq0 = tl.q0 + wg * 64;  // this warpgroup's first row
+      float* lp = lse != nullptr
+                      ? lse + (static_cast<size_t>(tl.b) * Hq + tl.h) * Sq
+                      : nullptr;
       if (kv_len != nullptr && kv_len[tl.b] <= 0) {
         const int hk = tl.h / group;
         mean_v_rows(v + static_cast<size_t>(tl.b) * Skv * kv_row + hk * D,
                     kv_row, Skv, D,
                     o + static_cast<size_t>(tl.b) * Sq * q_row + tl.h * D,
-                    q_row, wq0, min(wq0 + 64, Sq), tid, 128);
+                    q_row, lp, wq0, min(wq0 + 64, Sq), tid, 128);
         continue;
       }
       const int kv_lim = min(Skv, kv_len != nullptr ? kv_len[tl.b] : Skv);
@@ -653,6 +673,11 @@ __global__ void __launch_bounds__(TcConfig<D, NC>::THREADS,
         l += __shfl_xor_sync(0xffffffffu, l, 1);
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         inv[r] = l > 0.f ? 1.f / l : 0.f;
+        // the row's logsumexp: m is in log2 units of the scaled scores
+        const int row = wq0 + wr + 8 * r;
+        if (lp != nullptr && t == 0 && row < Sq)
+          lp[row] = l > 0.f ? (m[r] + log2f(l)) * 0.6931471805599453f
+                            : INFINITY;
       }
       if (tid == 0) sm90::tma_store_wait_read();
       sm90::named_bar_sync(1 + wg, 128);
@@ -683,106 +708,39 @@ __global__ void __launch_bounds__(TcConfig<D, NC>::THREADS,
 
 // ---- launch -----------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool* configured) {
-  if (*configured) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  *configured = e == cudaSuccess;
-  return e;
-}
-
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       const int* kv_len, int B, int Sq, int Skv, int Hq,
-                       int Hkv, int q_offset, int causal, float scale,
+                       float* lse, const int* kv_len, int B, int Sq, int Skv,
+                       int Hq, int Hkv, int q_offset, int causal, float scale,
                        cudaStream_t stream) {
   static bool configured = false;
-  cudaError_t e = allow_smem(flash_fwd_f32_kernel<D>, smem_bytes_f32<D>(),
-                             &configured);
+  cudaError_t e = sm90::allow_smem(flash_fwd_f32_kernel<D>,
+                                   smem_bytes_f32<D>(), &configured);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_fwd_f32_kernel<D><<<grid, kThreads, smem_bytes_f32<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), kv_len, Sq, Skv,
-      Hq, Hkv, q_offset, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, kv_len, Sq,
+      Skv, Hq, Hkv, q_offset, causal, scale);
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled is a driver function: it is reached through the
-// runtime's driver entry point, so the library links nothing but the
-// runtime.
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                   cuuint32_t, void*, const cuuint64_t*,
-                                   const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave,
-                                   CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion,
-                                   CUtensorMapFloatOOBfill);
-
-cudaError_t encode_fn(EncodeTiledFn* fn) {
-  static EncodeTiledFn cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr)
-      return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
-// A (B, S, H, D) bf16 tensor as a 4-d tensor map (D, H, S, B), innermost
-// first, in boxes of 64 columns x 1 head x `rows` positions, 128-byte
-// swizzled; loads past S (or D) read zeros, stores there are dropped.
-cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int B, int S,
-                       int H, int D, int rows) {
-  EncodeTiledFn fn;
-  cudaError_t e = encode_fn(&fn);
-  if (e != cudaSuccess) return e;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(H) * D * 2,
-                                 static_cast<cuuint64_t>(S) * H * D * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kPanelCols), 1,
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box,
-                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int D, int NC>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        const int* kv_len, int B, int Sq, int Skv, int Hq,
-                        int Hkv, int q_offset, int causal, float scale,
-                        cudaStream_t stream) {
+                        float* lse, const int* kv_len, int B, int Sq,
+                        int Skv, int Hq, int Hkv, int q_offset, int causal,
+                        float scale, cudaStream_t stream) {
   using C = TcConfig<D, NC>;
   static bool configured = false;
   cudaError_t e =
-      allow_smem(flash_fwd_bf16_kernel<D, NC>, C::SMEM, &configured);
+      sm90::allow_smem(flash_fwd_bf16_kernel<D, NC>, C::SMEM, &configured);
   if (e != cudaSuccess) return e;
   CUtensorMap tq, tk, tv, to;
-  if ((e = tensor_map(&tq, q, B, Sq, Hq, D, C::BQ)) != cudaSuccess ||
-      (e = tensor_map(&to, o, B, Sq, Hq, D, 64)) != cudaSuccess ||
-      (e = tensor_map(&tk, k, B, Skv, Hkv, D, C::BK)) != cudaSuccess ||
-      (e = tensor_map(&tv, v, B, Skv, Hkv, D, C::BK)) != cudaSuccess)
+  if ((e = sm90::tensor_map(&tq, q, B, Sq, Hq, D, C::BQ)) != cudaSuccess ||
+      (e = sm90::tensor_map(&to, o, B, Sq, Hq, D, 64)) != cudaSuccess ||
+      (e = sm90::tensor_map(&tk, k, B, Skv, Hkv, D, C::BK)) !=
+          cudaSuccess ||
+      (e = sm90::tensor_map(&tv, v, B, Skv, Hkv, D, C::BK)) != cudaSuccess)
     return e;
   // one CTA for every slot the card can hold resident, each walking tiles
   static int slots = 0;
@@ -802,31 +760,32 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   flash_fwd_bf16_kernel<D, NC>
       <<<min(n_tiles, slots), C::THREADS, C::SMEM, stream>>>(
           tq, tk, tv, to, static_cast<const bf16*>(v), static_cast<bf16*>(o),
-          kv_len, B, Sq, Skv, Hq, Hkv, q_offset, causal,
+          lse, kv_len, B, Sq, Skv, Hq, Hkv, q_offset, causal,
           scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16_tile(int block_q, const void* q, const void* k,
-                             const void* v, void* o, const int* kv_len, int B,
-                             int Sq, int Skv, int Hq, int Hkv, int q_offset,
-                             int causal, float scale, cudaStream_t stream) {
+                             const void* v, void* o, float* lse,
+                             const int* kv_len, int B, int Sq, int Skv,
+                             int Hq, int Hkv, int q_offset, int causal,
+                             float scale, cudaStream_t stream) {
   return block_q == 128
-             ? launch_bf16<D, 2>(q, k, v, o, kv_len, B, Sq, Skv, Hq, Hkv,
-                                 q_offset, causal, scale, stream)
-             : launch_bf16<D, 1>(q, k, v, o, kv_len, B, Sq, Skv, Hq, Hkv,
-                                 q_offset, causal, scale, stream);
+             ? launch_bf16<D, 2>(q, k, v, o, lse, kv_len, B, Sq, Skv, Hq,
+                                 Hkv, q_offset, causal, scale, stream)
+             : launch_bf16<D, 1>(q, k, v, o, lse, kv_len, B, Sq, Skv, Hq,
+                                 Hkv, q_offset, causal, scale, stream);
 }
 
 }  // namespace
 
-// kv_len: (B,) int32 on the device, or null. Tensors must be 16-byte
-// aligned. block_q (64 or 128) is the bf16 kernel's q tile, chosen by the
-// wrapper; the fp32 kernel always takes 64 rows. bf16 needs Skv >= 1 (a
-// tensor map has no empty dimension).
+// kv_len: (B,) int32 on the device, or null; lse: (B, Hq, Sq) fp32, or
+// null. Tensors must be 16-byte aligned. block_q (64 or 128) is the bf16
+// kernel's q tile, chosen by the wrapper; the fp32 kernel always takes 64
+// rows. bf16 needs Skv >= 1 (a tensor map has no empty dimension).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
+                                      const void* v, void* o, void* lse,
                                       const void* kv_len, int B, int Sq,
                                       int Skv, int Hq, int Hkv, int D,
                                       int q_offset, int causal, float scale,
@@ -834,6 +793,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kl = static_cast<const int*>(kv_len);
+  float* lp = static_cast<float*>(lse);
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
   if (Hkv <= 0 || Hq % Hkv != 0 ||
       (D != 64 && D != 128 && !(bf16_in && D == 112)) ||
@@ -841,18 +801,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (bf16_in)
-    e = D == 64    ? launch_bf16_tile<64>(block_q, q, k, v, o, kl, B, Sq, Skv,
-                                          Hq, Hkv, q_offset, causal, scale, s)
-        : D == 112 ? launch_bf16_tile<112>(block_q, q, k, v, o, kl, B, Sq,
-                                           Skv, Hq, Hkv, q_offset, causal,
-                                           scale, s)
-                   : launch_bf16_tile<128>(block_q, q, k, v, o, kl, B, Sq,
-                                           Skv, Hq, Hkv, q_offset, causal,
-                                           scale, s);
+    e = D == 64    ? launch_bf16_tile<64>(block_q, q, k, v, o, lp, kl, B, Sq,
+                                          Skv, Hq, Hkv, q_offset, causal,
+                                          scale, s)
+        : D == 112 ? launch_bf16_tile<112>(block_q, q, k, v, o, lp, kl, B,
+                                           Sq, Skv, Hq, Hkv, q_offset,
+                                           causal, scale, s)
+                   : launch_bf16_tile<128>(block_q, q, k, v, o, lp, kl, B,
+                                           Sq, Skv, Hq, Hkv, q_offset,
+                                           causal, scale, s);
   else
-    e = D == 64 ? launch_f32<64>(q, k, v, o, kl, B, Sq, Skv, Hq, Hkv,
+    e = D == 64 ? launch_f32<64>(q, k, v, o, lp, kl, B, Sq, Skv, Hq, Hkv,
                                  q_offset, causal, scale, s)
-                : launch_f32<128>(q, k, v, o, kl, B, Sq, Skv, Hq, Hkv,
+                : launch_f32<128>(q, k, v, o, lp, kl, B, Sq, Skv, Hq, Hkv,
                                   q_offset, causal, scale, s);
   return static_cast<int>(e);
 }

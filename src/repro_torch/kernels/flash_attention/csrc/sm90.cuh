@@ -1,8 +1,12 @@
-// Hopper (sm_90a) building blocks for kernel B2's bf16 path, in inline PTX:
-// mbarriers, TMA tensor loads, wgmma shared-memory descriptors and the
-// wgmma products it issues, and setmaxnreg. Nothing here is a kernel.
+// Hopper (sm_90a) building blocks for kernel B2's bf16 paths (forward and
+// backward), in inline PTX: mbarriers, TMA tensor loads, wgmma
+// shared-memory descriptors and the wgmma products they issue, and
+// setmaxnreg; on the host, the bf16 TMA tensor maps. Nothing here is a
+// kernel.
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace repro {
@@ -95,6 +99,32 @@ __device__ __forceinline__ void tma_store_commit() {
 // shared-memory source.
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Add the box at (c0, c1, c2, c3) of `tmap` from shared memory at `src`
+// into the tensor, element by element (an asynchronous reduction in this
+// thread's bulk group); parts outside the tensor are dropped.
+__device__ __forceinline__ void tma_reduce_add_4d(const void* tmap,
+                                                  const void* src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(tmap)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Wait until at most one committed bulk group of this thread is still
+// reading its shared-memory source.
+__device__ __forceinline__ void bulk_wait_read_1() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+
+// Wait until every committed bulk operation of this thread has completed,
+// its writes to global memory included.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Order this thread's shared-memory writes before later async-proxy
@@ -254,7 +284,106 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D (64 x N) = [D if scale_d] + A (64 x 16) * B (16 x N): A K-major, B
+// MN-major (N contiguous), both in shared memory. B2's backward takes dQ =
+// dS K this way, K read as it lies.
+template <int N>
+__device__ void wgmma_ss_tb(float (&d)[N / 2], uint64_t a, uint64_t b,
+                            int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<64>(float (&d)[32], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 #undef WG_D8
+
+// ---- host side ----------------------------------------------------------
+
+// Let `kernel` take `bytes` of dynamic shared memory (once a kernel).
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes, bool* configured) {
+  if (*configured) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  *configured = e == cudaSuccess;
+  return e;
+}
+
+// cuTensorMapEncodeTiled lives in libcuda, not in the runtime: it is
+// reached through the runtime's entry-point query, so the library links
+// nothing but the runtime.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+inline cudaError_t encode_fn(EncodeTiledFn* fn) {
+  static EncodeTiledFn cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// A (B, S, H, D) bf16 tensor (fp32 with `f32`) as a 4-d tensor map (D, H,
+// S, B), innermost first, in boxes of 128 bytes of columns (64 bf16 or 32
+// fp32) x 1 head x `rows` positions, 128-byte swizzled; loads past S (or
+// D) read zeros, stores and reductions there are dropped.
+inline cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int B,
+                              int S, int H, int D, int rows,
+                              bool f32 = false) {
+  EncodeTiledFn fn;
+  cudaError_t e = encode_fn(&fn);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t esz = f32 ? 4 : 2;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * esz,
+                                 static_cast<cuuint64_t>(H) * D * esz,
+                                 static_cast<cuuint64_t>(S) * H * D * esz};
+  const cuuint32_t box[4] = {f32 ? 32u : 64u, 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map,
+                        f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        4,
+                        const_cast<void*>(ptr), dims, strides, box,
+                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 }  // namespace sm90
 }  // namespace repro

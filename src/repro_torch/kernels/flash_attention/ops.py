@@ -7,7 +7,13 @@ with an fp32 running softmax, and ``p`` cast to ``v``'s type before
 ``p @ v``, so bf16 rounding matches the JAX prefill path. A CPU tensor goes
 to it; a CUDA tensor goes to the kernel in ``csrc/flash_attention.cu`` or
 raises. On the card the bf16 kernel's q tile and launch order are chosen
-here (``launch_plan``), where the CPU tests can reach them."""
+here (``launch_plan``), where the CPU tests can reach them.
+
+Under autograd the forward kernel also writes each row's logsumexp, and the
+backward is a kernel too (``csrc/flash_attention_bwd.cu``,
+``flash_attention_backward``); its plain version is the closed form
+``flash_attention_bwd``, and the tiles it visits are listed by
+``bwd_tiles``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -49,6 +55,35 @@ def tile_rows(b: int, sq: int, hq: int):
     return out
 
 
+def bwd_tiles(b: int, sq: int, skv: int, hq: int, hkv: int, *,
+              causal: bool = True, q_offset: int = 0, kv_len=None,
+              bf16: bool = True):
+    """The backward kernel's visits: for each CTA, (batch, KV head, first
+    key, keys) and the (query head, first q row, rows) tiles it walks, in
+    its order. A CTA holds 128 keys in bf16 (64 in fp32) and walks 64-row
+    query tiles of every query head of its group, from the first tile that
+    can see its first key under causal masking (the tiles wholly above the
+    diagonal are skipped). A CTA of a sequence that sees no key
+    (``kv_len[b] == 0``) or whose keys all lie at or past ``kv_len[b]``
+    visits nothing."""
+    bk, bq = (128 if bf16 else 64), 64
+    g = hq // hkv
+    n_qt = -(-sq // bq)
+    out = []
+    for cta in range(-(-skv // bk) * hkv * b):
+        kt, rest = divmod(cta, hkv * b)
+        hk, bb = rest % hkv, rest // hkv
+        k0 = kt * bk
+        kv_lim = skv if kv_len is None else min(skv, int(kv_len[bb]))
+        visits = []
+        if k0 < kv_lim:
+            lo = (k0 - q_offset) // bq if causal and k0 > q_offset else 0
+            visits = [(hk * g + hh, qt * bq, min(bq, sq - qt * bq))
+                      for hh in range(g) for qt in range(lo, n_qt)]
+        out.append((bb, hk, k0, min(bk, skv - k0), visits))
+    return out
+
+
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     """(B, S, Hkv, D) -> (B, S, Hkv*n_rep, D)."""
     if n_rep == 1:
@@ -60,9 +95,12 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def attention_dense_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
                         kv_len: Optional[torch.Tensor] = None,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        return_lse: bool = False):
     """O(Sq*Skv)-memory reference. q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv,
-    D); q_offset: global position of q[0]; kv_len: optional (B,) lengths."""
+    D); q_offset: global position of q[0]; kv_len: optional (B,) lengths.
+    With ``return_lse`` also each row's logsumexp (see
+    ``flash_attention_ref``)."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
@@ -80,11 +118,15 @@ def attention_dense_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
-                       v.float())
-    return out.to(q.dtype)
+                       v.float()).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(logits, dim=-1)
+    return out, torch.where(mask.any(-1), lse, float("inf"))
 
 
-def _flash_chunked(q, k, v, q_offset, kv_len, scale, causal, kv_chunk):
+def _flash_chunked(q, k, v, q_offset, kv_len, scale, causal, kv_chunk,
+                   return_lse=False):
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     n_rep = hq // hkv
@@ -114,25 +156,36 @@ def _flash_chunked(q, k, v, q_offset, kv_len, scale, causal, kv_chunk):
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / torch.clamp_min(l_run, 1e-37)[..., None]
-    return out.transpose(1, 2).to(q.dtype)       # (B, Sq, Hq, D)
+    out = out.transpose(1, 2).to(q.dtype)       # (B, Sq, Hq, D)
+    if not return_lse:
+        return out
+    # a row that saw a key has a max above the masked logits' NEG_INF
+    return out, torch.where(m > NEG_INF, m + torch.log(l_run), float("inf"))
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
                         kv_len: Optional[torch.Tensor] = None,
                         scale: Optional[float] = None,
-                        kv_chunk: int = 256) -> torch.Tensor:
+                        kv_chunk: int = 256, return_lse: bool = False):
     """Memory-bounded flash attention (chunked over KV). Falls back to the
     dense form when Skv is not a multiple of the chunk, as the reference
-    does."""
+    does.
+
+    With ``return_lse``, (out, lse): lse (B, Hq, Sq) fp32 is each row's
+    logsumexp of its scaled scores over the keys it sees, +inf for a row
+    that sees none, as the kernel's forward writes it for the backward:
+    exp(scale q k^T - lse) @ v is then the output of every row that sees a
+    key."""
     skv = k.shape[1]
     kv_chunk = min(kv_chunk, skv)
     if skv % kv_chunk:
         return attention_dense_ref(q, k, v, causal=causal, q_offset=q_offset,
-                                   kv_len=kv_len, scale=scale)
+                                   kv_len=kv_len, scale=scale,
+                                   return_lse=return_lse)
     d = q.shape[-1]
     return _flash_chunked(q, k, v, int(q_offset), kv_len,
                           scale if scale is not None else d ** -0.5,
-                          causal, kv_chunk)
+                          causal, kv_chunk, return_lse)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
@@ -143,9 +196,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     Hkv, D) -> (B, Sq, Hq, D). ``kv_chunk`` shapes only the plain version.
 
     On CUDA, when grad mode is on and q, k or v requires grad, the kernel
-    runs inside ``_FlashAttention``, whose backward is
-    ``flash_attention_bwd``; otherwise it launches bare. A DTensor is
-    refused with a TypeError (``refuse_dtensor``)."""
+    runs inside ``_FlashAttention``, whose backward is the backward kernel
+    (``flash_attention_backward``); otherwise it launches bare. A DTensor
+    is refused with a TypeError (``refuse_dtensor``)."""
     refuse_dtensor("flash_attention", q, k, v, kv_len)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
@@ -158,99 +211,160 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return _launch(q, k, v, causal, q_offset, kv_len, scale)
 
 
-def _launch(q, k, v, causal, q_offset, kv_len, scale) -> torch.Tensor:
-    """Check the inputs, launch the CUDA kernel and count the launch."""
+def _check(q, k, v, kv_len, q_offset, name="flash_attention"):
+    """Raise for what the kernels do not take; return (b, sq, skv, hq, hkv,
+    d, bf16)."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+        raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
+        raise ValueError(f"{name}: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, hq, d = q.shape
     _, skv, hkv, dk = k.shape
     if k.shape[0] != b or dk != d or hkv == 0 or hq % hkv:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not form GQA heads")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+        raise TypeError(f"{name}: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; one of {_DTYPES} expected")
     bf16 = q.dtype == torch.bfloat16
     if bf16 and skv == 0:
-        raise ValueError("flash_attention: bf16 needs Skv >= 1 (its TMA "
+        raise ValueError(f"{name}: bf16 needs Skv >= 1 (its TMA "
                          "tensor maps have no empty dimension)")
     if d not in (64, 128) and not (d == 112 and q.dtype == torch.bfloat16):
-        raise ValueError(f"flash_attention: head dim {d} not in (64, 128), "
+        raise ValueError(f"{name}: head dim {d} not in (64, 128), "
                          "or 112 in bf16")
     if not all(t.device == q.device and t.is_contiguous()
                for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k, v must be contiguous on "
+        raise ValueError(f"{name}: q, k, v must be contiguous on "
                          "one device")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
+        raise ValueError(f"{name}: q, k, v must be 16-byte aligned "
                          "(TMA and whole-row vector loads)")
     if kv_len is not None and (kv_len.dtype != torch.int32
                                or kv_len.shape != (b,)
                                or kv_len.device != q.device
                                or not kv_len.is_contiguous()):
-        raise ValueError("flash_attention: kv_len must be a contiguous "
+        raise ValueError(f"{name}: kv_len must be a contiguous "
                          "(B,) int32 tensor on q's device")
     q_offset = int(q_offset)
     if q_offset < 0:
-        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+        raise ValueError(f"{name}: q_offset {q_offset} < 0")
+    return b, sq, skv, hq, hkv, d, bf16
+
+
+def _launch(q, k, v, causal, q_offset, kv_len, scale,
+            lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Check the inputs, launch the CUDA kernel and count the launch; with
+    ``lse`` ((B, Hq, Sq) fp32) the kernel also writes each row's
+    logsumexp there."""
+    b, sq, skv, hq, hkv, d, bf16 = _check(q, k, v, kv_len, q_offset)
     out = torch.empty_like(q)
     block_q = launch_plan(b, sq, hq)[0] if bf16 else 64
+    # torch._C._cuda_getCurrentRawStream (private; PyTorch's generated
+    # Triton launchers read the stream through it) gives the handle as an
+    # int without building a torch.cuda.Stream
     _build.module().flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         None if kv_len is None else kv_len.data_ptr(),
-        b, sq, skv, hq, hkv, d, q_offset, int(causal),
+        b, sq, skv, hq, hkv, d, int(q_offset), int(causal),
         float(scale if scale is not None else d ** -0.5), block_q,
-        int(bf16), torch.cuda.current_stream(q.device).cuda_stream)
+        int(bf16), torch._C._cuda_getCurrentRawStream(q.get_device()))
     flash_attention.launches += 1
     return out
 
 
 class _FlashAttention(torch.autograd.Function):
-    """B2 under autograd: the kernel's forward, and ``flash_attention_bwd``
-    (PyTorch ops) as its backward. The reference has no backward kernel:
-    its gradient is XLA's autodiff of the jnp attention, outside Pallas.
-    ``kv_len`` gets no gradient."""
+    """B2 under autograd: the kernel's forward, which also writes each
+    row's logsumexp, and the backward kernel (``flash_attention_backward``)
+    reading it. The reference has no backward kernel: its gradient is XLA's
+    autodiff of the jnp attention, outside Pallas. ``kv_len`` gets no
+    gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, causal, q_offset, scale):
-        out = _launch(q, k, v, causal, q_offset, kv_len, scale)
-        ctx.save_for_backward(q, k, v, out, kv_len)
+        lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                          dtype=torch.float32, device=q.device)
+        out = _launch(q, k, v, causal, q_offset, kv_len, scale, lse)
+        ctx.save_for_backward(q, k, v, out, lse, kv_len)
         ctx.args = (causal, q_offset, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, kv_len = ctx.saved_tensors
+        q, k, v, out, lse, kv_len = ctx.saved_tensors
         causal, q_offset, scale = ctx.args
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal,
-                                         q_offset=q_offset, kv_len=kv_len,
-                                         scale=scale)
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, dout.contiguous(), lse, causal=causal,
+            q_offset=q_offset, kv_len=kv_len, scale=scale)
         return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_backward(q, k, v, out, dout, lse, *, causal: bool = True,
+                             q_offset: int = 0,
+                             kv_len: Optional[torch.Tensor] = None,
+                             scale: Optional[float] = None):
+    """(dq, dk, dv) from the backward kernel (``csrc/flash_attention_bwd.cu``)
+    on CUDA tensors: the forward's q, k, v, out and its logsumexp ``lse``
+    ((B, Hq, Sq) fp32), and ``dout`` like out. Counts its launch in
+    ``flash_attention_backward.launches``. Its plain version is
+    ``flash_attention_bwd`` (give it ``lse``); a shape the kernel does not
+    take raises, and nothing falls back."""
+    refuse_dtensor("flash_attention_backward", q, k, v, out, dout, lse,
+                   kv_len)
+    b, sq, skv, hq, hkv, d, bf16 = _check(q, k, v, kv_len, q_offset,
+                                          "flash_attention_backward")
+    if skv == 0:
+        raise ValueError("flash_attention_backward: Skv must be >= 1")
+    if not all(t.shape == q.shape and t.dtype == q.dtype
+               and t.device == q.device and t.is_contiguous()
+               and t.data_ptr() % 16 == 0 for t in (out, dout)):
+        raise ValueError("flash_attention_backward: out and dout must be "
+                         "contiguous, 16-byte aligned and like q")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("flash_attention_backward: lse must be a "
+                         "contiguous (B, Hq, Sq) fp32 tensor on q's device")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device) \
+        if bf16 else dq
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    _build.module().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(),
+        None if kv_len is None else kv_len.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(), delta.data_ptr(),
+        b, sq, skv, hq, hkv, d, int(q_offset), int(causal),
+        float(scale if scale is not None else d ** -0.5), int(bf16),
+        torch._C._cuda_getCurrentRawStream(q.get_device()))
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
 
 
 def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
                         q_offset: int = 0,
                         kv_len: Optional[torch.Tensor] = None,
                         scale: Optional[float] = None,
+                        lse: Optional[torch.Tensor] = None,
                         block_elems: int = 1 << 26):
     """Gradients (dq, dk, dv) of attention with output ``out`` and output
     gradient ``dout``, in closed form, in fp32, returned in the inputs'
     types: the gradient the reference's autodiff takes of its masked
-    softmax attention.
+    softmax attention; the plain version of the backward kernel. With
+    ``lse`` (the forward's (B, Hq, Sq) logsumexp, ``flash_attention_ref(...,
+    return_lse=True)``) it is read and not recomputed.
 
     Query rows go in chunks whose fp32 score block (B, Hq, rows, keys)
     holds at most ``block_elems`` values; under causal masking a chunk
     reads only the keys its last row can see. For each chunk: the scores
     S = q k^T * scale with masked logits at NEG_INF, each row's logsumexp
-    recomputed, P = exp(S - lse) (zero where masked), delta = rowsum(dout
-    * out), dV += P^T dO, dS = P * (dO V^T - delta), dQ = dS K * scale,
-    dK += dS^T Q * scale, with dK and dV summed over each GQA group. A row
-    that sees no key gets the mean of V over all Skv keys in the forward
-    (the uniform softmax of all-NEG_INF logits): its dQ is 0, it gives no
-    dK, and it adds dO / Skv to every key's dV."""
+    (given, or recomputed), P = exp(S - lse) (zero where masked), delta =
+    rowsum(dout * out), dV += P^T dO, dS = P * (dO V^T - delta), dQ = dS K
+    * scale, dK += dS^T Q * scale, with dK and dV summed over each GQA
+    group. A row that sees no key gets the mean of V over all Skv keys in
+    the forward (the uniform softmax of all-NEG_INF logits): its dQ is 0,
+    it gives no dK, and it adds dO / Skv to every key's dV."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -282,9 +396,13 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
                            )[:, None, None, None, :]
         s = torch.einsum("bnhgd,bkhd->bhgnk", qc, kc) * scale
         s = torch.where(mask, s, NEG_INF)
-        lse = torch.logsumexp(s, dim=-1, keepdim=True)
-        p = torch.where(mask, torch.exp(s - lse), 0.0)
-        del s, lse
+        if lse is None:
+            rows_lse = torch.logsumexp(s, dim=-1, keepdim=True)
+        else:
+            rows_lse = lse[:, :, r0:r1].float().reshape(
+                b, hkv, g, n)[..., None]
+        p = torch.where(mask, torch.exp(s - rows_lse), 0.0)
+        del s, rows_lse
         delta = (doc * oc).sum(-1).permute(0, 2, 3, 1)[..., None]
         dv[:, :kend] += torch.einsum("bhgnk,bnhgd->bkhd", p, doc)
         ds = p * (torch.einsum("bnhgd,bkhd->bhgnk", doc, vc) - delta)
@@ -308,6 +426,8 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+flash_attention_backward.launches = 0
 
-__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_ref",
-           "attention_dense_ref", "launch_plan", "tile_rows"]
+__all__ = ["flash_attention", "flash_attention_backward",
+           "flash_attention_bwd", "flash_attention_ref", "attention_dense_ref",
+           "launch_plan", "tile_rows", "bwd_tiles"]

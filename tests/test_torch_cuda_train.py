@@ -1,19 +1,23 @@
 """Training on the card: kernels B2, B3 and B4 under autograd.
 
 On CUDA, B2 (flash attention), B3 (RMSNorm) and B4 (the SSD scan) run
-inside ``torch.autograd.Function``s whose forward is the kernel. B2's and
-B3's backward is the closed-form gradient in PyTorch ops
-(``flash_attention_bwd``, ``rmsnorm_bwd``); B4's is the backward kernel
+inside ``torch.autograd.Function``s whose forward is the kernel and whose
+backward is a backward kernel: B2's (``flash_attention_backward``, reading
+the logsumexp its forward writes), B3's (``rmsnorm_backward``) and B4's
 (``ssd_scan_backward``, held against its closed form ``ssd_scan_bwd`` over
 a grid in ``tests/test_torch_cuda_ssd.py``). B2 and B3 are held here,
 forward and gradients, against autograd of their plain versions on the
-same CUDA tensors: B2 over the grid of ``tests/test_torch_cuda_flash.py``
-(causal and not, query groups 1-8, head dims 64, 112 and 128, key counts
-1, 63, 64, 65, 1601 and 4096), B3 over the grid of its CPU sweep; B4's
-gradients equal the plain version's. B1 has no backward and must refuse
-an input that requires grad. A reduced fp32 model's every parameter gets a
-finite gradient on the card, equal to the CPU's: granite-3-8b and
-llama2-7b, and the SSM and hybrid families, mamba2-1.3b and zamba2-7b.
+same CUDA tensors, each backward kernel launched once a call: B2 over the
+grid of ``tests/test_torch_cuda_flash.py`` (causal and not, query groups
+1-8, head dims 64, 112 and 128, key counts 1, 63, 64, 65, 1601 and 4096,
+zamba2-7b's 32 heads of 112 at 4096), a kv_len case with a sequence that
+sees no key, and dK and dV equal bit for bit over two runs; B3 over the
+grid of its CPU sweep, a weight of the other type, and the training
+shape; B4's gradients equal the plain version's. B1 has no backward and
+must refuse an input that requires grad. A reduced fp32 model's every
+parameter gets a finite gradient on the card, equal to the CPU's:
+granite-3-8b and llama2-7b, and the SSM and hybrid families, mamba2-1.3b
+and zamba2-7b.
 
 These tests need an NVIDIA card and nvcc (the kernels are built at first
 use); without a card they skip. On the GPU machine:
@@ -30,8 +34,9 @@ from repro_torch.configs import get_arch, reduced  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     paged_decode_attention)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_ref)
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
+    flash_attention, flash_attention_backward, flash_attention_ref)
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    rmsnorm, rmsnorm_backward, rmsnorm_ref)
 from repro_torch.kernels.ssd_scan import (ssd_chunked_ref,  # noqa: E402
                                           ssd_scan, ssd_scan_backward)
 from repro_torch.models.model import LM  # noqa: E402
@@ -90,6 +95,7 @@ FLASH_GRID = [
     (2, 256, 256, 32, 32, 112, True, [torch.bfloat16]),   # zamba2's heads
     (1, 512, 4096, 8, 2, 128, False, DTYPES),      # 4096 keys
     (1, 4096, 4096, 8, 2, 128, True, [torch.bfloat16]),   # training length
+    (2, 4096, 4096, 32, 32, 112, True, [torch.bfloat16]),  # zamba2 training
 ]
 
 
@@ -102,12 +108,13 @@ def test_flash_function_matches_autograd_of_plain(card, b, sq, skv, hq, hkv,
     k, v = (_randn(gen, card, dtype, b, skv, hkv, d) for _ in range(2))
     dout = _randn(gen, card, dtype, b, sq, hq, d)
     q_offset = skv - sq if causal else 0
-    before = flash_attention.launches
+    before = (flash_attention.launches, flash_attention_backward.launches)
     (out, grads), (want, wgrads) = _grads_against_plain(
         lambda *a: flash_attention(*a, causal=causal, q_offset=q_offset),
         lambda *a: flash_attention_ref(*a, causal=causal, q_offset=q_offset),
         (q, k, v), dout)
-    assert flash_attention.launches == before + 1
+    assert (flash_attention.launches, flash_attention_backward.launches) \
+        == (before[0] + 1, before[1] + 1)
     assert out.grad_fn is not None
     _close(out, want, dtype)
     for g, w in zip(grads, wgrads):
@@ -123,14 +130,35 @@ def test_flash_function_kv_len_and_masked_rows(card, dtype):
     k, v = (_randn(gen, card, dtype, 2, 200, 4, 128) for _ in range(2))
     dout = _randn(gen, card, dtype, 2, 64, 8, 128)
     kl = torch.tensor([0, 150], dtype=torch.int32, device=card)
+    before = flash_attention_backward.launches
     (out, grads), (want, wgrads) = _grads_against_plain(
         lambda *a: flash_attention(*a, causal=True, q_offset=136, kv_len=kl),
         lambda *a: flash_attention_ref(*a, causal=True, q_offset=136,
                                        kv_len=kl), (q, k, v), dout)
+    assert flash_attention_backward.launches == before + 1
     _close(out, want, dtype)
     for g, w in zip(grads, wgrads):
         _close(g, w, dtype)
     assert not bool(grads[0][0].float().any())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_backward_dk_dv_are_deterministic(card, dtype):
+    """dK and dV accumulate in each CTA's registers and are written once:
+    two backward runs give them bit for bit (dQ, summed by atomics, may
+    differ in its last bits)."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    q = _randn(gen, card, dtype, 2, 1000, 8, 128)
+    k, v = (_randn(gen, card, dtype, 2, 1000, 2, 128) for _ in range(2))
+    dout = _randn(gen, card, dtype, 2, 1000, 8, 128)
+    xs = [t.requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*xs, causal=True)
+    runs = [torch.autograd.grad(out, xs, dout, retain_graph=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][2], runs[1][2])
+    _close(runs[0][0], runs[1][0], dtype)
 
 
 def test_flash_without_grad_launches_bare(card):
@@ -151,14 +179,29 @@ def test_rmsnorm_function_matches_autograd_of_plain(card, shape, dtype,
     x, r, dy = (_randn(gen, card, dtype, *shape) for _ in range(3))
     w = _randn(gen, card, dtype, shape[-1])
     inputs = (x, w, r) if with_res else (x, w)
-    before = rmsnorm.launches
+    before = (rmsnorm.launches, rmsnorm_backward.launches)
     (y, grads), (want, wgrads) = _grads_against_plain(
         lambda *a: rmsnorm(*a, eps=1e-5), lambda *a: rmsnorm_ref(*a, eps=1e-5),
         inputs, dy)
-    assert rmsnorm.launches == before + 1 and y.grad_fn is not None
+    assert (rmsnorm.launches, rmsnorm_backward.launches) == (
+        before[0] + 1, before[1] + 1) and y.grad_fn is not None
     _close(y, want, dtype)
     for g, w_ in zip(grads, wgrads):
         _close(g, w_, dtype)
+
+
+def test_rmsnorm_function_mixed_weight_dtype(card):
+    """fp32 activations normed with a bf16 weight: dx in fp32, dw in
+    bf16."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    x, dy = (_randn(gen, card, torch.float32, 5, 96) for _ in range(2))
+    w = _randn(gen, card, torch.bfloat16, 96)
+    (y, grads), (want, wgrads) = _grads_against_plain(
+        lambda *a: rmsnorm(*a, eps=1e-5), lambda *a: rmsnorm_ref(*a, eps=1e-5),
+        (x, w), dy)
+    assert grads[0].dtype == torch.float32 and grads[1].dtype == torch.bfloat16
+    _close(grads[0], wgrads[0], torch.float32)
+    _close(grads[1], wgrads[1], torch.bfloat16)
 
 
 def test_rmsnorm_function_training_shape(card):
@@ -247,12 +290,14 @@ def _cpu_and_card_grads(card, arch, counters):
 def test_every_parameter_gets_the_cpus_gradient(card, name, d_model):
     """Reduced fp32 model (heads of 64 or 128): on the card every leaf's
     gradient exists, is finite and equals the CPU's within 1e-4 of the
-    leaf's largest; B2 and B3 launched in the forward."""
+    leaf's largest; B2 and B3 launched in the forward, and their backward
+    kernels in the backward."""
     arch = dataclasses.replace(
         reduced(get_arch(name), n_layers=2, d_model=d_model, vocab=512),
         param_dtype="float32")
-    assert _cpu_and_card_grads(card, arch, (flash_attention, rmsnorm)) \
-        == [2, 5]
+    assert _cpu_and_card_grads(card, arch, (
+        flash_attention, rmsnorm, flash_attention_backward,
+        rmsnorm_backward)) == [2, 5, 2, 5]
 
 
 @pytest.mark.parametrize("name,n_layers,mamba,attn", [
@@ -263,11 +308,13 @@ def test_ssm_every_parameter_gets_the_cpus_gradient(card, name, n_layers,
     16, a state of 16, chunks of 32 over 128 tokens; zamba2's shared
     attention heads of 64): every leaf's card gradient exists, is finite
     and equals the CPU's within 1e-4 of the leaf's largest; B4's forward
-    and backward kernels launched once per Mamba layer, B2 once per
-    attention site, B3 once per norm."""
+    and backward kernels launched once per Mamba layer, B2's forward and
+    backward once per attention site, B3's once per norm."""
     arch = dataclasses.replace(
         reduced(get_arch(name), n_layers=n_layers, d_model=256, vocab=512),
         param_dtype="float32")
-    got = _cpu_and_card_grads(card, arch, (ssd_scan, ssd_scan_backward,
-                                           flash_attention, rmsnorm))
-    assert got == [mamba, mamba, attn, mamba + 2 * attn + 1]
+    got = _cpu_and_card_grads(card, arch, (
+        ssd_scan, ssd_scan_backward, flash_attention, rmsnorm,
+        flash_attention_backward, rmsnorm_backward))
+    norms = mamba + 2 * attn + 1
+    assert got == [mamba, mamba, attn, norms, attn, norms]

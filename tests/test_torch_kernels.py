@@ -483,6 +483,6 @@ def test_kernel_sources_include_no_torch_headers():
     assert sysconfig.get_paths()["include"] in _build.include_flags()
     shared = _build.KERNELS_DIR / "csrc"
     kernels = [p for p in _build.sources() if p.parent != shared]
-    assert len(kernels) == 7
+    assert len(kernels) == 9
     for p in kernels:
         assert '#include "launch.cuh"' in p.read_text(), p

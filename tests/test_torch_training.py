@@ -10,8 +10,11 @@ launcher and the example) against the reference's on the same inputs:
   against JAX's; remat changes no gradient;
 - checkpoints cross between the packages both ways, leaf for leaf;
 - the closed-form backwards of kernels B2 and B3 (``flash_attention_bwd``,
-  ``rmsnorm_bwd``, which run on the card inside the kernels' autograd
-  Functions) against ``jax.vjp`` of the reference's oracles;
+  ``rmsnorm_bwd``, the plain versions of the backward kernels that run on
+  the card inside the kernels' autograd Functions) against ``jax.vjp`` of
+  the reference's oracles; B2's also from the logsumexp the forward
+  writes, and B3's dw also as the backward kernel's two passes (per-CTA
+  partials, then their column sum);
 - twins of ``tests/test_training.py`` and of
   ``tests/test_models_smoke.py::test_train_step_smoke``, the launcher's
   ``--smoke`` run and the example's resume.
@@ -46,7 +49,8 @@ from repro_torch.configs import get_arch, reduced  # noqa: E402
 from repro_torch.convert import params_from_jax_numpy  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_ref)
-from repro_torch.kernels.rmsnorm import rmsnorm_bwd  # noqa: E402
+from repro_torch.kernels.rmsnorm import (bwd_ctas, rmsnorm_bwd,  # noqa: E402
+                                         rmsnorm_dw_partials)
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch import training as tt  # noqa: E402
 from repro_torch.training import optimizer as topt  # noqa: E402
@@ -446,6 +450,31 @@ def test_flash_attention_bwd_matches_jax_vjp(case, dtype, block_elems):
         _close_grad(g, w, dtype, f"d{name}")
 
 
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_from_lse_matches_jax_vjp(case, dtype):
+    """Given the forward's logsumexp (``return_lse``, what the forward
+    kernel writes for the backward kernel), at the tolerances of the test
+    above."""
+    _, _, _, _, _, _, causal, q_offset, kv_len, kv_chunk = case
+    rng = np.random.default_rng(len(str(case)))
+    (qj, kj, vj, doj), (qt, kt, vt, dot) = _flash_inputs(rng, case, dtype)
+    klj = None if kv_len is None else jnp.asarray(kv_len, jnp.int32)
+    klt = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32)
+    _, vjp = jax.vjp(lambda q, k, v: jax_flash_ref(
+        q, k, v, causal=causal, q_offset=q_offset, kv_len=klj,
+        kv_chunk=kv_chunk), qj, kj, vj)
+    want = vjp(doj)
+    out, lse = flash_attention_ref(qt, kt, vt, causal=causal,
+                                   q_offset=q_offset, kv_len=klt,
+                                   kv_chunk=kv_chunk, return_lse=True)
+    got = flash_attention_bwd(qt, kt, vt, out, dot, causal=causal,
+                              q_offset=q_offset, kv_len=klt, lse=lse)
+    for name, g, w, t in zip("qkv", got, want, (qt, kt, vt)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _close_grad(g, w, dtype, f"d{name}")
+
+
 def test_flash_attention_bwd_matches_autograd_of_the_plain_version():
     """The same gradients autograd takes of the plain version, which the
     card's checks hold the kernel's Function against."""
@@ -481,6 +510,41 @@ def test_rmsnorm_bwd_matches_jax_vjp(shape, dtype, with_res):
     assert (got[2] is None) == (not with_res)
     for name, g, wnt in zip(("dx", "dw", "dresidual"), got, want):
         _close_grad(g, wnt, dtype, name)
+
+
+@pytest.mark.parametrize("shape,ctas", [((4, 64), None), ((2, 8, 128), 3),
+                                        ((3, 96), 1), ((37, 160), None),
+                                        ((37, 160), 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_rmsnorm_dw_two_passes_match(shape, ctas, dtype, with_res):
+    """The backward kernel's dw in two passes (CTA c's partial over rows c,
+    c + C, ..., then the column sum), mirrored in plain PyTorch, against
+    ``rmsnorm_bwd``'s dw and ``jax.vjp`` of the reference's oracle."""
+    rng = np.random.default_rng(6)
+    x, r, dy = (rng.standard_normal(shape).astype(np.float32)
+                for _ in range(3))
+    w = (1 + 0.3 * rng.standard_normal(shape[-1:])).astype(np.float32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    args = [jnp.asarray(a, jdt) for a in (x, w) + ((r,) if with_res else ())]
+
+    def f(x_, w_, *res):
+        return jax_rmsnorm_ref(x_, w_, res[0] if res else None, eps=1e-5)
+    _, vjp = jax.vjp(f, *args)
+    want = vjp(jnp.asarray(dy, jdt))[1]
+    xt, wt, rt, dyt = (torch.from_numpy(a).to(dtype) for a in (x, w, r, dy))
+    res = rt if with_res else None
+    rows = int(np.prod(shape[:-1]))
+    part, dw = rmsnorm_dw_partials(xt, wt, dyt, res, 1e-5, ctas)
+    n = bwd_ctas(rows) if ctas is None else ctas
+    assert part.shape == (n, shape[-1]) and part.dtype == torch.float32
+    assert dw.dtype == wt.dtype
+    closed = rmsnorm_bwd(xt, wt, dyt, res, eps=1e-5)[1]
+    torch.testing.assert_close(dw.float(), closed.float(),
+                               **(dict(rtol=1e-5, atol=1e-5)
+                                  if dtype == torch.float32 else
+                                  dict(rtol=1e-2, atol=1e-2)))
+    _close_grad(dw, want, dtype, "dw")
 
 
 def test_rmsnorm_bwd_mixed_weight_dtype():
