@@ -141,13 +141,16 @@
    device time), the closed form in PyTorch ops as their plain column,
    SDPA's or ``F.rms_norm``'s forward and backward beside them, each with
    its bound; a backward device time under its bound raises. Then B4's
-   backward kernel (``kernels/ssd_scan/csrc/ssd_scan_bwd.cu``, six passes, the
-   backward of ``ssd_scan``'s autograd Function) at B4's cases of item 7
+   backward kernel (``kernels/ssd_scan/csrc/ssd_scan_bwd.cu``, six passes,
+   for bf16 every product on the tensor cores; the backward of
+   ``ssd_scan``'s autograd Function) at B4's cases of item 7
    and at the training shape (mamba2-1.3b's microbatch, bf16 B=2, S=4096,
    64 heads, P=64, N=128, Q=256, from a zero state): every input's
    gradient held against the closed form in PyTorch ops
    (``ssd_scan_bwd``) on the same card tensors, within 1e-4 (fp32) or
-   2e-2 (bf16) of its largest magnitude, a case with an initial state
+   2e-2 (bf16) of its largest magnitude, and for bf16 against the
+   kernel's own numerics in PyTorch ops (``ssd_scan_bwd(...,
+   split=True)``) within 5e-3, a case with an initial state
    taking a final-state gradient too; timed (the backward of one retained
    forward) beside autograd of the plain forward and the closed form,
    each pass's device time logged, with its bound
@@ -319,6 +322,7 @@ BWD_COUNTERS = {"flash_attention_bwd": "flash_attention_backward",
                 "rmsnorm_bwd": "rmsnorm_backward"}
 SSD_PASSES = 3                             # B4's kernels per call
 SSD_BWD_PASSES = 6                         # B4's backward kernels per call
+                                           # (bf16 and fp32 alike)
 FLASH_BWD_PASSES = 3                       # B2's backward kernels (bf16)
 RMSNORM_BWD_PASSES = 2                     # B3's backward kernels
 # B4's cases (B, S, H, P, G, N, Q, type, initial state) at the mamba2-1.3b
@@ -337,6 +341,8 @@ SSD_CASES = ((4, 2048, 64, 64, 1, 128, 256, "bf16", True),
 # microbatch of 2 x 4096 tokens from a zero state
 SSD_TRAIN_CASE = (2, 4096, 64, 64, 1, 128, 256, "bf16", False)
 BWD_TOL = {"fp32": 1e-4, "bf16": 2e-2}     # of each gradient's largest
+SPLIT_TOL = 5e-3    # of each gradient's largest: B4's bf16 backward against
+                    # its split numerics, ssd_scan_bwd(..., split=True)
 L2_BYTES = 50 * 2 ** 20                    # H100 L2 cache
 # B1's cases at the engine's pool, (batch, Hq, Hkv, type); then the main
 # path's ragged batch: PagedEngine decodes all 8 slots, an idle one with
@@ -1056,7 +1062,10 @@ def ssd_bwd_phase(torch, timer, smi):
     input's gradient through the Function (forward kernel, then backward
     kernel) held against ``ssd_scan_bwd`` (the closed form in PyTorch ops)
     on the same card tensors, within ``BWD_TOL`` of the gradient's largest
-    magnitude; a case with an initial state also takes a final-state
+    magnitude, and for bf16 against its own numerics in PyTorch ops
+    (``ssd_scan_bwd(..., split=True)``, every product with an fp32 operand
+    as bf16 hi and lo parts) within ``SPLIT_TOL``; a case with an initial
+    state also takes a final-state
     gradient, the others, as training, none. Then timed: the backward of one
     retained forward, called again and again, beside autograd of the plain
     forward (``ssd_chunked_ref``, or ``ssd_ref`` at a ragged S) and the
@@ -1117,6 +1126,21 @@ def ssd_bwd_phase(torch, timer, smi):
                                      f"{BWD_TOL[kind]}")
             errs.append(diff)
             rels.append(rel)
+        split_txt = "not taken (fp32)"
+        if kind == "bf16":
+            split = ssd_scan_bwd(*inputs[:6], st, dy, dfin, chunk=q,
+                                 split=True)
+            split_rel = 0.0
+            for name, gk, gs in zip(names, got, split):
+                rel = float((gk.float() - gs.float()).abs().max()) / max(
+                    float(gs.float().abs().max()), 1e-30)
+                if rel > SPLIT_TOL:
+                    raise AssertionError(f"{what} {name}: {rel:.3g} of the "
+                                         "largest from ssd_scan_bwd(split="
+                                         f"True), outside {SPLIT_TOL}")
+                split_rel = max(split_rel, rel)
+            split_txt = f"{split_rel:.3g} of the largest"
+            del split
 
         def kern_b():
             return torch.autograd.grad(outs, xs, cot, retain_graph=True)
@@ -1144,8 +1168,9 @@ def ssd_bwd_phase(torch, timer, smi):
             " init dfinal" if init else "")
         log(f"[ssd_scan_backward] {case} {kind}: each gradient's max abs "
             f"err " + json.dumps(dict(zip(names, errs)))
-            + f", of its largest {max(rels):.3g}; closed form "
-            f"(ssd_scan_bwd) {closed_ms:.4g} ms")
+            + f", of its largest {max(rels):.3g}; against its split "
+            f"numerics {split_txt}; closed form (ssd_scan_bwd) "
+            f"{closed_ms:.4g} ms")
         record(cases, "ssd_scan_backward", case, kind, max(errs), k_ms, p_ms,
                None, nbytes, ops, tol={"of_largest": BWD_TOL[kind]},
                dev=(k_dev, None))

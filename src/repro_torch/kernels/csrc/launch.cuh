@@ -57,7 +57,7 @@ int ssd_scan_launch(const void* x, const void* dt, const void* A,
 
 // B4's backward, six passes (ssd_scan/csrc/ssd_scan_bwd.cu): entry and cum
 // are the forward's scratch; dfin may be null; gst, dBCh, rows and
-// chunk_sums are its own fp32 scratch
+// chunk_sums are its own fp32 scratch; hs heads a CTA of passes 3 and 4
 int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A,
                         const void* Bm, const void* Cm, const void* D,
                         const void* dy, const void* dfin, const void* entry,
@@ -65,7 +65,7 @@ int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A,
                         void* dBm, void* dCm, void* dD, void* dinit,
                         void* gst, void* dBCh, void* rows, void* chunk_sums,
                         int B, int S, int H, int P, int G, int N, int Q,
-                        int bf16, void* stream);
+                        int hs, int bf16, void* stream);
 
 // The Scenario API's whole-trace simulation core (fastsim/csrc): one CTA
 // per candidate fleet size; `par` is (8, W) float64 per-worker parameters;

@@ -150,10 +150,10 @@ PyObject* ssd_scan(PyObject*, PyObject* const* a, Py_ssize_t n) {
 
 // ssd_scan_bwd(x, dt, A, Bm, Cm, D, dy, dfin or None, entry, cum, dx, ddt,
 //              dA, dBm, dCm, dD, dinit, gst, dBCh, rows, chunk_sums, B, S,
-//              H, P, G, N, Q, bf16, stream)
+//              H, P, G, N, Q, hs, bf16, stream)
 PyObject* ssd_scan_bwd(PyObject*, PyObject* const* a, Py_ssize_t n) {
   const char* name = "ssd_scan_bwd";
-  const Args in(a, n, "pppppppppppppppppppppiiiiiiiip", name);
+  const Args in(a, n, "pppppppppppppppppppppiiiiiiiiip", name);
   if (!in.ok) return nullptr;
   return result(ssd_scan_bwd_launch(
                     in.p(0), in.p(1), in.p(2), in.p(3), in.p(4), in.p(5),
@@ -161,7 +161,7 @@ PyObject* ssd_scan_bwd(PyObject*, PyObject* const* a, Py_ssize_t n) {
                     in.p(12), in.p(13), in.p(14), in.p(15), in.p(16),
                     in.p(17), in.p(18), in.p(19), in.p(20), in.i(21),
                     in.i(22), in.i(23), in.i(24), in.i(25), in.i(26),
-                    in.i(27), in.i(28), in.p(29)),
+                    in.i(27), in.i(28), in.i(29), in.p(30)),
                 name);
 }
 

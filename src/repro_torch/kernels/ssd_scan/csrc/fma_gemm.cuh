@@ -1,7 +1,8 @@
-// The fp32 product of B4's forward (its fp32 path) and backward kernels:
-// FMAs from shared tiles, each warp's accumulator kept in the mma.sync
-// fragment layout, so that one epilogue serves fp32 and tensor-core
-// products alike.
+// The fp32 product of B4's forward and backward kernels, for fp32 inputs
+// only (their bf16 paths run every product on the tensor cores,
+// mma_sync.cuh): FMAs from shared tiles, each warp's accumulator kept in
+// the mma.sync fragment layout, so that one epilogue serves fp32 and
+// tensor-core products alike.
 #pragma once
 
 namespace repro {

@@ -75,11 +75,19 @@
 #include "common.cuh"
 #include "fma_gemm.cuh"
 #include "launch.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 using repro::gemm;
+using repro::ldsm_x4;
+using repro::ldsm_x4_t;
+using repro::mma_bf16;
+using repro::split2;
+using repro::store2;
 using repro::to_f32;
 
 constexpr int kThreads = 128;     // four warps, 16 rows each
@@ -87,29 +95,6 @@ constexpr int kT = 64;            // rows of a tile
 constexpr int kMaxP = 64;
 constexpr int kMaxN = 128;
 constexpr int kCarry = kThreads * 4;  // state entries a carry CTA walks
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; `bytes` = 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most `kPending` committed groups are still in flight
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 template <typename T>
 constexpr int ld_of(int cols) {  // padded row: ldmatrix / FMA reads of
@@ -122,59 +107,12 @@ template <typename T>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
                                           size_t stride, int cols,
                                           int live) {
-  constexpr int V = 16 / sizeof(T);
-  const int per_row = cols / V;
-  for (int i = threadIdx.x; i < kT * per_row; i += kThreads) {
-    const int r = i / per_row, c = (i % per_row) * V;
-    const bool ok = r < live;
-    cp_async16(dst + r * ld + c, ok ? src + r * stride + c : src,
-               ok ? 16 : 0);
-  }
+  repro::load_tile<kT, kThreads>(dst, ld, src, stride, cols, live);
 }
 
 // ---- products ---------------------------------------------------------
-// A warp's accumulator acc[nt] is the 16 x 8 tile at rows m0 + {g, g + 8},
-// columns 8 nt + {2t, 2t + 1} (g = lane / 4, t = lane % 4): the mma.sync
-// layout, kept by the fp32 FMA products too. bf16 operands come from
-// shared tiles by ldmatrix (row r8 = lane % 8 of matrix mi = lane / 8);
-// an fp32 operand is split in registers (split2).
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// hi and lo bf16 halves of two fp32 values, packed as an mma operand pair
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
-}
+// The mma.sync accumulator and fragment layout of mma_sync.cuh, kept by
+// the fp32 FMA products too, so that one epilogue serves both.
 
 // exp(a - b). The bf16 path takes a and b pre-scaled by log2(e) and the
 // hardware's ex2 (its y is held at 2e-2); the fp32 path, held at 2e-5,
@@ -188,17 +126,6 @@ __device__ __forceinline__ float decay(float a, float b) {
   } else {
     return expf(a - b);
   }
-}
-
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float v0, float v1);
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-template <>
-__device__ __forceinline__ void store2<bf16>(bf16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
 // shared-memory layout of the two tiled passes, in elements of T

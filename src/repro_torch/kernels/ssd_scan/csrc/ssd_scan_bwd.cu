@@ -6,8 +6,7 @@
 // (src/repro/kernels/ssd_scan/ref.py). It runs as the backward of the
 // forward kernel (ssd_scan.cu) under autograd, and takes the forward's
 // scratch: the chunk cumsums of dt * A, and the state entering each chunk
-// (for bf16 inputs stored as bf16 hi and lo tiles, read here as hi + lo,
-// within 2^-16 of the fp32 state).
+// (for bf16 inputs stored as bf16 hi and lo tiles).
 //
 //   x, dy: (B, S, H, P) and Bm, Cm: (B, S, G, N), one type (fp32 or bf16);
 //   dt: (B, S, H), A, D: (H,), dfin: (B, H, P, N) or null, all fp32.
@@ -33,95 +32,137 @@
 // x = 0, dy = 0, as in the forward.
 //
 // Six passes, the forward's three-pass shape turned round:
-//   1. `ssd_bwd_kernel_states`, one CTA per (chunk, head, batch): each
-//      chunk's sum_i exp(cum_i) dy_i^T C_i, a (P, N) product like the
-//      forward's own state, into the fp32 scratch `gst`.
-//   2. `ssd_bwd_kernel_carry`, one CTA per (batch, head): the reverse carry
-//      over the chunks, last to first, with the whole (P, N) state in the
-//      CTA's registers; it overwrites each chunk's slot of `gst` with G, the
-//      gradient of the state leaving it, writes dinit, and each chunk's
-//      exp(cum_L) <E, G> (a block reduction) for the decay gradient.
-//   3. `ssd_bwd_kernel_dc`, one CTA per (64-row query tile, chunk, head,
-//      batch), heaviest tiles first: dC_i of each head (into the fp32
-//      scratch `dBCh`) and each row's part of dcum.
-//   4. `ssd_bwd_kernel_dbx`, one CTA per (64-row key tile, chunk, head,
-//      batch): dx_j, dB_j of each head, sum_i R_ij + v_j, dt_j v_j and
-//      x_j . dy_j. Passes 3 and 4 each compute the score tiles C B^T and
-//      dy x^T of their pairs of tiles, as flash attention's backward splits
-//      dq from dk and dv.
-//   5. `ssd_bwd_kernel_decay`, one CTA per (chunk, head, batch): dcum, its
-//      reverse cumsum (one warp, in double), ddt, and the chunk's parts of
-//      dA and dD.
-//   6. `ssd_bwd_kernel_reduce`: dB and dC summed over each group's heads
-//      and cast to the input type; its last CTA sums dA and dD.
+//   1. `states`, one CTA per (chunk, head, batch): each chunk's
+//      sum_i exp(cum_i) dy_i^T C_i, a (P, N) product like the forward's own
+//      state, into the fp32 scratch `own`.
+//   2. `carry`, per (batch, head) and 512 state entries a CTA, as the
+//      forward's carry: the reverse carry over the chunks, last to first
+//      (the loads of four chunks in flight at once); it writes G, the
+//      gradient of the state leaving each chunk (for bf16 inputs split once
+//      here into bf16 hi and lo tiles, as the forward stores E), dinit, and
+//      the CTA's part of each chunk's exp(cum_L) <E, G>.
+//   3. `dc`, one CTA per (64-row query tile, chunk, slice of heads, batch),
+//      heaviest tiles first: dC_i summed over the slice's heads (into the
+//      fp32 scratch `dBCh`) and each row's part of dcum, head by head.
+//   4. `dbx`, one CTA per (64-row key tile, chunk, slice of heads, batch):
+//      dx_j of each head, dB_j summed over the slice's heads, sum_i R_ij +
+//      v_j, dt_j v_j and x_j . dy_j. Passes 3 and 4 each compute the score
+//      tiles C B^T and dy x^T of their pairs of tiles, as flash attention's
+//      backward splits dq from dk and dv.
+//   5. `decay`, one CTA per (chunk, head, batch): dcum, its reverse cumsum
+//      (one warp, in double), ddt, and the chunk's parts of dA and dD.
+//   6. `reduce`: dB and dC summed over each group's slices and cast to the
+//      input type; its last CTA sums dA and dD.
+// Nothing is added by atomics: every output is the same, bit for bit, from
+// call to call.
+//
+// bf16 inputs (the training paths; passes 1, 3 and 4 are the `_tc`
+// kernels): every product runs on the tensor cores as the forward's do,
+// `mma.sync.m16n8k16` bf16 with fp32 accumulation (mma_sync.cuh), operands
+// as bf16 shared tiles through `ldmatrix`, key (pass 3) or query (pass 4)
+// tiles loaded by `cp.async` two stages deep. C B^T and dy x^T have two
+// bf16 operands: one exact pass each. The other products have one fp32
+// operand, taken as bf16 hi = bf16(v) and lo = bf16(v - hi) in two passes
+// against the exact bf16 operand: the decayed dy of pass 1 (split in
+// registers), E and G (read as the hi and lo tiles passes 2 of the forward
+// and of this kernel wrote), and the masked, decayed score tiles M, S^T and
+// M^T, which go from the accumulators into the next product's A fragments
+// without touching shared memory. `ssd_scan_bwd(..., split=True)` in ops.py
+// repeats this rounding on the CPU. The decays of the score tiles use the
+// hardware's ex2 on cumsums pre-scaled by log2(e). A CTA of passes 3 and 4
+// takes its heads (a slice of one group's, `Dims::hs` of them) one after
+// another, keeping the group's shared C (pass 3) or B (pass 4) tile and the
+// dC or dB sum in place, so that the per-head scratch `dBCh` holds H / hs
+// partial sums a position and not H. Shared memory: ~79 KB a CTA (the
+// slice's C or B tile, a head's dy or x tile, and two stages of the other
+// side's tiles, over which E or G is read first), two CTAs an SM.
+//
+// fp32 inputs (the reduced models' and the tests' path, held at 1e-4):
+// passes 1, 3 and 4 are fp32 FMAs from padded shared tiles (fma_gemm.cuh),
+// one head a CTA, the score tiles through shared memory.
 //
 // What bounds it on the H100: at the training shape (B = 2, S = 4096,
-// H = 64, P = 64, N = 128, Q = 256) passes 3 and 4 hold ~all of the
-// ~150 GFLOP of products, all fp32 FMAs from padded shared tiles (bf16
-// operands converted as they load), a few times the bound of the bytes it
-// must move (~0.2 GB). Tensor cores (the forward's split-bf16 mma.sync, or
-// wgmma) and sharing the score tiles between passes 3 and 4 are the next
-// levers.
+// H = 64, P = 64, N = 128, Q = 256) the least work is ~164 GFLOP of bf16
+// products (both passes of every split product, C B^T once a group, dy x^T
+// once a head), 0.166 ms at the tensor cores' rate, above the ~0.2 GB that
+// must move. The kernel recomputes C B^T and dy x^T in passes 3 and 4 and
+// C B^T per head, and feeds mma.sync from 64-row tiles; where its time goes
+// is in PERF.md.
 #include "common.cuh"
 #include "fma_gemm.cuh"
 #include "launch.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 using repro::gemm;
-using repro::to_f32;
+using repro::ldsm_x4;
+using repro::ldsm_x4_t;
+using repro::mma_bf16;
+using repro::split2;
+using repro::split_frag;
+using repro::store2;
 using repro::warp_sum;
 
 constexpr int kThreads = 128;   // four warps, 16 rows each
 constexpr int kT = 64;          // rows of a tile
 constexpr int kMaxP = 64;
 constexpr int kMaxN = 128;
-constexpr int kLdP = kMaxP + 4; // padded fp32 rows: the FMA reads of eight
-constexpr int kLdN = kMaxN + 4; // rows hit eight banks
+// fp32 path: padded fp32 rows, so that the FMA reads of eight rows hit
+// eight banks
+constexpr int kLdP = kMaxP + 4;
+constexpr int kLdN = kMaxN + 4;
 constexpr int kLdK = kT + 4;
 constexpr int kTileP = kT * kLdP, kTileN = kT * kLdN, kTileK = kT * kLdK;
-constexpr int kCarryVec = kMaxP * kMaxN / (4 * kThreads);  // float4s a thread
+// bf16 path: padded bf16 rows, so that ldmatrix's eight rows hit eight
+// 16-byte bank groups
+constexpr int kHP = kMaxP + 8;
+constexpr int kHN = kMaxN + 8;
+constexpr int kHTileP = kT * kHP, kHTileN = kT * kHN;
+constexpr int kHStage = kHTileN + kHTileP;   // a C or B tile and a dy or x
+constexpr int kCarry = kThreads * 4;         // state entries a carry CTA
+constexpr float kLog2e = 1.44269504088896341f;
 
-// four consecutive values as fp32
+// four consecutive fp32 values
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// four entries of a chunk's entering state from the forward's scratch:
-// fp32, or (split) a bf16 hi tile then a bf16 lo tile in the slot's bytes
-__device__ __forceinline__ float4 entry4(const float* slot, int i, int PN,
-                                         bool split) {
-  if (!split) return load4(slot + i);
-  const bf16* half = reinterpret_cast<const bf16*>(slot);
-  const float4 hi = load4(half + i), lo = load4(half + PN + i);
-  return make_float4(hi.x + lo.x, hi.y + lo.y, hi.z + lo.z, hi.w + lo.w);
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-// `rows` rows of `cols` values, `stride` elements apart, into fp32 rows of
-// `ld`; rows at or past `live` are zeros
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
-                                          size_t stride, int cols, int live,
+// 2^v, the hardware's ex2 (the bf16 path's decays, on cumsums pre-scaled
+// by log2(e), as the forward's)
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// fp32: `rows` rows of `cols` values, `stride` elements apart, into fp32
+// rows of `ld`; rows at or past `live` are zeros
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const float* src, size_t stride,
+                                          int cols, int live,
                                           int rows = kT) {
   const int per_row = cols / 4;
   for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
     const int r = i / per_row, c = (i % per_row) * 4;
     *reinterpret_cast<float4*>(dst + r * ld + c) =
-        r < live ? load4(src + r * stride + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+        r < live ? load4(src + r * stride + c)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
   }
+}
+
+// bf16: kT rows by cp.async into rows of `ld`, zeros at or past `live`
+__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
+                                          size_t stride, int cols,
+                                          int live) {
+  repro::load_tile<kT, kThreads>(dst, ld, src, stride, cols, live);
 }
 
 // kT values `stride` apart (cum, dt), zeros at or past `live`
@@ -150,22 +191,28 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+__device__ __forceinline__ float2 bf2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
 struct Dims {
   int S, H, P, G, N, Q, nc;
+  int hs;   // heads a CTA of passes 3 and 4 takes (1 for fp32)
   __host__ __device__ size_t x_row() const {
     return static_cast<size_t>(H) * P;
   }
   __host__ __device__ size_t bc_row() const {
     return static_cast<size_t>(G) * N;
   }
+  __host__ __device__ int slices() const { return H / hs; }
 };
 
-// ---- pass 1: sum_i exp(cum_i) dy_i^T C_i per chunk ------------------------
-template <typename T>
+// ---- fp32, pass 1: sum_i exp(cum_i) dy_i^T C_i per chunk ------------------
 __global__ void __launch_bounds__(kThreads)
-    ssd_bwd_kernel_states(const T* __restrict__ dy, const T* __restrict__ Cm,
+    ssd_bwd_kernel_states(const float* __restrict__ dy,
+                          const float* __restrict__ Cm,
                           const float* __restrict__ cum,
-                          float* __restrict__ gst, Dims d) {
+                          float* __restrict__ own, Dims d) {
   extern __shared__ __align__(16) float smem[];
   float* sDy = smem;                 // [i][p]
   float* sC = sDy + kTileP;          // [i][n]
@@ -174,8 +221,9 @@ __global__ void __launch_bounds__(kThreads)
   const int g = h / (d.H / d.G), warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
   const int c0 = c * d.Q, L = min(d.Q, d.S - c0), p0 = 16 * warp;
-  const T* dyb = dy + (static_cast<size_t>(b) * d.S + c0) * d.x_row() + h * d.P;
-  const T* Cb = Cm + (static_cast<size_t>(b) * d.S + c0) * d.bc_row() + g * d.N;
+  const size_t pos0 = static_cast<size_t>(b) * d.S + c0;
+  const float* dyb = dy + pos0 * d.x_row() + h * d.P;
+  const float* Cb = Cm + pos0 * d.bc_row() + g * d.N;
   const size_t bhc = (static_cast<size_t>(b) * d.H + h) * d.nc + c;
   float acc[kMaxN / 8][4] = {};
   for (int i0 = 0; i0 < L; i0 += kT) {
@@ -191,7 +239,100 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
   if (p0 < d.P) {
-    float* out = gst + bhc * d.P * d.N;
+    float* out = own + bhc * d.P * d.N;
+#pragma unroll
+    for (int nt = 0; nt < kMaxN / 8; ++nt) {
+      const int n = 8 * nt + 2 * t;
+      if (n < d.N) {
+        *reinterpret_cast<float2*>(out + (p0 + gq) * d.N + n) =
+            make_float2(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<float2*>(out + (p0 + gq + 8) * d.N + n) =
+            make_float2(acc[nt][2], acc[nt][3]);
+      }
+    }
+  }
+}
+
+
+// ---- bf16, pass 1: sum_i exp(cum_i) dy_i^T C_i per chunk -----------------
+// A = dy stored [i][p], each k scaled by exp(cum_i) and split; B = C stored
+// [i][n]: the forward's chunk-state product with dy for x and C for B.
+__global__ void __launch_bounds__(kThreads)
+    ssd_bwd_kernel_states_tc(const bf16* __restrict__ dy,
+                             const bf16* __restrict__ Cm,
+                             const float* __restrict__ cum,
+                             float* __restrict__ own, Dims d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* base = reinterpret_cast<bf16*>(smem_raw);   // [stage]: dy, then C
+  float* sF = reinterpret_cast<float*>(base + 2 * kHStage);  // [stage][kT]
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (d.H / d.G);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t = lane & 3, r8 = lane & 7, mi = lane >> 3;
+  const int c0 = c * d.Q, L = min(d.Q, d.S - c0), p0 = 16 * warp;
+  const size_t xr = d.x_row(), bcr = d.bc_row();
+  const bf16* dyb = dy + (static_cast<size_t>(b) * d.S + c0) * xr + h * d.P;
+  const bf16* Cb = Cm + (static_cast<size_t>(b) * d.S + c0) * bcr + g * d.N;
+  const size_t bhc = (static_cast<size_t>(b) * d.H + h) * d.nc + c;
+  const float* cumc = cum + bhc * d.Q;
+
+  auto fetch = [&](int i0, int stage) {
+    bf16* s = base + stage * kHStage;
+    load_tile(s, kHP, dyb + i0 * xr, xr, d.P, L - i0);
+    load_tile(s + kHTileP, kHN, Cb + i0 * bcr, bcr, d.N, L - i0);
+    cp_async_commit();
+    if (tid < kT)
+      sF[stage * kT + tid] = i0 + tid < L ? expf(cumc[i0 + tid]) : 0.f;
+  };
+  float acc[kMaxN / 8][4] = {};
+  fetch(0, 0);
+  int stage = 0;
+  for (int i0 = 0;; i0 += kT) {
+    const bool more = i0 + kT < L;
+    if (more) {
+      fetch(i0 + kT, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sdy = base + stage * kHStage;
+    const bf16* sc = sdy + kHTileP;
+    const float* f = sF + stage * kT;
+    if (p0 < d.P) {
+#pragma unroll
+      for (int kk = 0; kk < kT / 16; ++kk) {
+        uint32_t ay[4], ah[4], al[4];
+        ldsm_x4_t(ay, sdy + (16 * kk + r8 + (mi >> 1) * 8) * kHP + p0 +
+                          (mi & 1) * 8);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // a[q]: k = 16 kk + 2t (+8 for q > 1)
+          const int k = 16 * kk + 2 * t + 8 * (q >> 1);
+          const float2 v =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                  &ay[q]));
+          split2(v.x * f[k], v.y * f[k + 1], ah[q], al[q]);
+        }
+#pragma unroll
+        for (int np = 0; np < kMaxN / 16; ++np) {
+          if (16 * np < d.N) {
+            uint32_t bf[4];
+            ldsm_x4_t(bf, sc + (16 * kk + r8 + (mi & 1) * 8) * kHN +
+                              16 * np + (mi >> 1) * 8);
+            mma_bf16(acc[2 * np], ah, bf[0], bf[1]);
+            mma_bf16(acc[2 * np], al, bf[0], bf[1]);
+            mma_bf16(acc[2 * np + 1], ah, bf[2], bf[3]);
+            mma_bf16(acc[2 * np + 1], al, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    if (!more) break;
+    __syncthreads();  // every warp is done with this stage
+    stage ^= 1;
+  }
+  if (p0 < d.P) {
+    float* out = own + bhc * d.P * d.N;
 #pragma unroll
     for (int nt = 0; nt < kMaxN / 8; ++nt) {
       const int n = 8 * nt + 2 * t;
@@ -206,62 +347,637 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---- pass 2: the reverse carry -------------------------------------------
-// Each thread holds kCarryVec float4s of the state's gradient G; chunk
-// c's slot of `gst` holds its sum_i exp(cum_i) dy_i^T C_i on entry and G
-// leaving chunk c on exit.
+// Each thread holds four entries of the state's gradient G. Chunk c's slot
+// of `own` holds its sum_i exp(cum_i) dy_i^T C_i; its slot of `gst`
+// receives G leaving chunk c (for bf16 inputs a bf16 hi tile then a bf16
+// lo tile in the slot's bytes, as `entry`), and `carry_part` the CTA's part
+// of exp(cum_L) <E, G>.
 __global__ void __launch_bounds__(kThreads)
-    ssd_bwd_kernel_carry(float* __restrict__ gst,
+    ssd_bwd_kernel_carry(const float* __restrict__ own,
+                         float* __restrict__ gst,
                          const float* __restrict__ entry,
                          const float* __restrict__ cum,
                          const float* __restrict__ dfin,
                          float* __restrict__ dinit,
-                         float* __restrict__ chunk_carry, bool split,
+                         float* __restrict__ carry_part, bool split,
                          Dims d) {
+  constexpr int kAhead = 4;  // chunks whose loads are in flight together
   __shared__ float red[kThreads / 32];
-  const int PN = d.P * d.N;
-  const size_t bh = static_cast<size_t>(blockIdx.y) * d.H + blockIdx.x;
-  float4 G[kCarryVec];
+  const int PN = d.P * d.N, n_cc = gridDim.x;
+  const int i = (blockIdx.x * kThreads + threadIdx.x) * 4;
+  const bool live = i < PN;
+  const size_t bh = static_cast<size_t>(blockIdx.z) * d.H + blockIdx.y;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 G = live && dfin != nullptr ? load4(dfin + bh * PN + i) : zero;
+  for (int top = d.nc - 1; top >= 0; top -= kAhead) {
+    float4 mine[kAhead], E[kAhead];
+    float decay[kAhead];
 #pragma unroll
-  for (int k = 0; k < kCarryVec; ++k) {
-    const int i = (k * kThreads + threadIdx.x) * 4;
-    G[k] = i < PN && dfin != nullptr ? load4(dfin + bh * PN + i)
-                                     : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  for (int c = d.nc - 1; c >= 0; --c) {
-    float* slot = gst + (bh * d.nc + c) * PN;
-    const float* eslot = entry + (bh * d.nc + c) * PN;
-    const float decay = expf(cum[(bh * d.nc + c) * d.Q +
-                                 min(d.Q, d.S - c * d.Q) - 1]);
-    float dot = 0.f;
-#pragma unroll
-    for (int k = 0; k < kCarryVec; ++k) {
-      const int i = (k * kThreads + threadIdx.x) * 4;
-      if (i < PN) {
-        const float4 own = load4(slot + i);
-        dot += dot4(entry4(eslot, i, PN, split), G[k]);
-        *reinterpret_cast<float4*>(slot + i) = G[k];
-        G[k] = make_float4(G[k].x * decay + own.x, G[k].y * decay + own.y,
-                           G[k].z * decay + own.z, G[k].w * decay + own.w);
+    for (int k = 0; k < kAhead; ++k) {
+      const int c = top - k;
+      mine[k] = E[k] = zero;
+      decay[k] = 0.f;
+      if (c < 0) continue;
+      const size_t slot = (bh * d.nc + c) * PN;
+      decay[k] = expf(cum[(bh * d.nc + c) * d.Q +
+                          min(d.Q, d.S - c * d.Q) - 1]);
+      if (!live) continue;
+      mine[k] = load4(own + slot + i);
+      if (split) {
+        const bf16* half = reinterpret_cast<const bf16*>(entry + slot);
+        const uint2 hv = *reinterpret_cast<const uint2*>(half + i);
+        const uint2 lv = *reinterpret_cast<const uint2*>(half + PN + i);
+        const float2 h0 = bf2(reinterpret_cast<const bf16*>(&hv.x));
+        const float2 h1 = bf2(reinterpret_cast<const bf16*>(&hv.y));
+        const float2 l0 = bf2(reinterpret_cast<const bf16*>(&lv.x));
+        const float2 l1 = bf2(reinterpret_cast<const bf16*>(&lv.y));
+        E[k] = make_float4(h0.x + l0.x, h0.y + l0.y, h1.x + l1.x,
+                           h1.y + l1.y);
+      } else {
+        E[k] = load4(entry + slot + i);
       }
     }
-    dot = block_sum(dot, red);
-    if (threadIdx.x == 0) chunk_carry[bh * d.nc + c] = decay * dot;
-  }
 #pragma unroll
-  for (int k = 0; k < kCarryVec; ++k) {
-    const int i = (k * kThreads + threadIdx.x) * 4;
-    if (i < PN) *reinterpret_cast<float4*>(dinit + bh * PN + i) = G[k];
+    for (int k = 0; k < kAhead; ++k) {
+      const int c = top - k;
+      if (c < 0) break;   // the same for every thread
+      const float dot = block_sum(dot4(E[k], G), red);
+      if (threadIdx.x == 0)
+        carry_part[(bh * d.nc + c) * n_cc + blockIdx.x] = decay[k] * dot;
+      if (live) {
+        float* slot = gst + (bh * d.nc + c) * PN;
+        if (split) {
+          uint32_t hi[2], lo[2];
+          split2(G.x, G.y, hi[0], lo[0]);
+          split2(G.z, G.w, hi[1], lo[1]);
+          bf16* half = reinterpret_cast<bf16*>(slot);
+          *reinterpret_cast<uint2*>(half + i) = make_uint2(hi[0], hi[1]);
+          *reinterpret_cast<uint2*>(half + PN + i) = make_uint2(lo[0], lo[1]);
+        } else {
+          *reinterpret_cast<float4*>(slot + i) = G;
+        }
+      }
+      G = make_float4(G.x * decay[k] + mine[k].x, G.y * decay[k] + mine[k].y,
+                      G.z * decay[k] + mine[k].z, G.w * decay[k] + mine[k].w);
+    }
+  }
+  if (live) *reinterpret_cast<float4*>(dinit + bh * PN + i) = G;
+}
+
+// ---- bf16, pass 3: dC and each row's part of dcum ------------------------
+__global__ void __launch_bounds__(kThreads)
+    ssd_bwd_kernel_dc_tc(const bf16* __restrict__ x,
+                         const float* __restrict__ dt,
+                         const bf16* __restrict__ Bm,
+                         const bf16* __restrict__ Cm,
+                         const bf16* __restrict__ dy,
+                         const float* __restrict__ entry,
+                         const float* __restrict__ cum,
+                         float* __restrict__ dCh,
+                         float* __restrict__ row_dcum, Dims d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sC = reinterpret_cast<bf16*>(smem_raw);   // query rows [i][n]
+  bf16* sDy = sC + kHTileN;                       // a head's [i][p]
+  bf16* sR = sDy + kHTileP;        // E hi, lo [p][n]; then two key stages
+  float* sCumQ = reinterpret_cast<float*>(sR + 2 * kHStage);
+  float* sCumK = sCumQ + kT;                      // [stage][kT]
+  float* sDtK = sCumK + 2 * kT;                   // [stage][kT]
+
+  const int slice = blockIdx.x, c = blockIdx.y;
+  const int n_qt = (d.Q + kT - 1) / kT, B = gridDim.z / n_qt;
+  const int b = blockIdx.z % B, qt = n_qt - 1 - blockIdx.z / B;
+  const int h0 = slice * d.hs, g = h0 / (d.H / d.G);
+  const int c0 = c * d.Q, L = min(d.Q, d.S - c0), i0 = qt * kT;
+  if (i0 >= L) return;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t = lane & 3, m0 = 16 * warp;
+  const int r8 = lane & 7, mi = lane >> 3;
+  const size_t xr = d.x_row(), bcr = d.bc_row();
+  const size_t pos0 = static_cast<size_t>(b) * d.S + c0;
+  const bf16* Cb = Cm + pos0 * bcr + g * d.N;
+  const bf16* Bb = Bm + pos0 * bcr + g * d.N;
+  const int PN = d.P * d.N;
+
+  load_tile(sC, kHN, Cb + i0 * bcr, bcr, d.N, L - i0);
+  float acc[kMaxN / 8][4] = {};   // dC over the slice's heads
+  for (int hh = 0; hh < d.hs; ++hh) {
+    const int h = h0 + hh;
+    const bf16* xb = x + pos0 * xr + h * d.P;
+    const bf16* dyb = dy + pos0 * xr + h * d.P;
+    const float* dtb = dt + pos0 * d.H + h;
+    const size_t bhc = (static_cast<size_t>(b) * d.H + h) * d.nc + c;
+    const float* cumc = cum + bhc * d.Q;
+    if (hh > 0) __syncthreads();   // the last head is done with sDy, sR
+    load_tile(sDy, kHP, dyb + i0 * xr, xr, d.P, L - i0);
+    const bf16* e = reinterpret_cast<const bf16*>(entry + bhc * PN);
+    load_tile(sR, kHN, e, d.N, d.N, d.P);
+    load_tile(sR + kHTileN, kHN, e + PN, d.N, d.N, d.P);
+    cp_async_commit();
+    if (tid < kT)
+      sCumQ[tid] = i0 + tid < L ? cumc[i0 + tid] * kLog2e : 0.f;
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // this warp's 16 rows of dy as A fragments, for both of its products
+    uint32_t yf[kMaxP / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kMaxP / 16; ++ks)
+      if (16 * ks < d.P)
+        ldsm_x4(yf[ks], sDy + (m0 + r8 + (mi & 1) * 8) * kHP + 16 * ks +
+                            (mi >> 1) * 8);
+    // exp(cum_i) E^T dy_i: A = dy [i][p], B(k = p, n) = E stored [p][n]
+    float part0 = 0.f, part1 = 0.f;  // C_i . (exp(cum_i) E^T dy_i), then + W
+    {
+      float ed[kMaxN / 8][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kMaxP / 16; ++ks) {
+#pragma unroll
+        for (int np = 0; np < kMaxN / 16; ++np) {
+          if (16 * ks < d.P && 16 * np < d.N) {
+            const int o = (16 * ks + r8 + (mi & 1) * 8) * kHN + 16 * np +
+                          (mi >> 1) * 8;
+            uint32_t bh[4], bl[4];
+            ldsm_x4_t(bh, sR + o);
+            ldsm_x4_t(bl, sR + kHTileN + o);
+            mma_bf16(ed[2 * np], yf[ks], bh[0], bh[1]);
+            mma_bf16(ed[2 * np], yf[ks], bl[0], bl[1]);
+            mma_bf16(ed[2 * np + 1], yf[ks], bh[2], bh[3]);
+            mma_bf16(ed[2 * np + 1], yf[ks], bl[2], bl[3]);
+          }
+        }
+      }
+      const float e0 = ex2(sCumQ[m0 + gq]), e1 = ex2(sCumQ[m0 + gq + 8]);
+      const bf16* c_a = sC + (m0 + gq) * kHN;
+      const bf16* c_b = c_a + 8 * kHN;
+#pragma unroll
+      for (int nt = 0; nt < kMaxN / 8; ++nt) {
+        const int n = 8 * nt + 2 * t;
+        if (n < d.N) {
+          const float2 ca = bf2(c_a + n), cb = bf2(c_b + n);
+          const float v0 = ed[nt][0] * e0, v1 = ed[nt][1] * e0;
+          const float v2 = ed[nt][2] * e1, v3 = ed[nt][3] * e1;
+          part0 += v0 * ca.x + v1 * ca.y;
+          part1 += v2 * cb.x + v3 * cb.y;
+          acc[nt][0] += v0;
+          acc[nt][1] += v1;
+          acc[nt][2] += v2;
+          acc[nt][3] += v3;
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with E
+
+    // key tile j0 into `stage`: B and x rows by cp.async, cum and dt
+    auto fetch = [&](int j0, int stage) {
+      bf16* s = sR + stage * kHStage;
+      load_tile(s, kHN, Bb + j0 * bcr, bcr, d.N, L - j0);
+      load_tile(s + kHTileN, kHP, xb + j0 * xr, xr, d.P, L - j0);
+      cp_async_commit();
+      if (tid < kT) {
+        const bool live = j0 + tid < L;
+        sCumK[stage * kT + tid] = live ? cumc[j0 + tid] * kLog2e : 0.f;
+        sDtK[stage * kT + tid] =
+            live ? dtb[static_cast<size_t>(j0 + tid) * d.H] : 0.f;
+      }
+    };
+    fetch(0, 0);
+    int stage = 0;
+    const float cq[2] = {sCumQ[m0 + gq], sCumQ[m0 + gq + 8]};
+    for (int j0 = 0;; j0 += kT) {
+      const bool more = j0 + kT <= i0;
+      if (more) {
+        fetch(j0 + kT, stage ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* sB = sR + stage * kHStage;
+      const bf16* sX = sB + kHTileN;
+      const float* cumK = sCumK + stage * kT;
+      const float* dtK = sDtK + stage * kT;
+      // on the diagonal tile this warp's rows see only the keys below m0 + 16
+      const int n_keys = j0 == i0 ? m0 + 16 : kT;
+      // C_i B_j^T and dy_i x_j^T (exact): B(k, j) = B_j, x_j stored [j][k]
+      float cb[kT / 8][4] = {}, m[kT / 8][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kMaxN / 16; ++ks) {
+        if (16 * ks < d.N) {
+          uint32_t ca[4];
+          ldsm_x4(ca, sC + (m0 + r8 + (mi & 1) * 8) * kHN + 16 * ks +
+                          (mi >> 1) * 8);
+#pragma unroll
+          for (int np = 0; np < kT / 16; ++np) {
+            if (16 * np < n_keys) {
+              uint32_t bf[4];
+              ldsm_x4(bf, sB + (16 * np + r8 + (mi >> 1) * 8) * kHN +
+                              16 * ks + (mi & 1) * 8);
+              mma_bf16(cb[2 * np], ca, bf[0], bf[1]);
+              mma_bf16(cb[2 * np + 1], ca, bf[2], bf[3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < kMaxP / 16; ++ks) {
+#pragma unroll
+        for (int np = 0; np < kT / 16; ++np) {
+          if (16 * ks < d.P && 16 * np < n_keys) {
+            uint32_t bf[4];
+            ldsm_x4(bf, sX + (16 * np + r8 + (mi >> 1) * 8) * kHP +
+                            16 * ks + (mi & 1) * 8);
+            mma_bf16(m[2 * np], yf[ks], bf[0], bf[1]);
+            mma_bf16(m[2 * np + 1], yf[ks], bf[2], bf[3]);
+          }
+        }
+      }
+      // M: decayed, masked where the tile crosses the diagonal or S
+      const bool full = j0 < i0 && i0 + kT <= L;
+#pragma unroll
+      for (int nt = 0; nt < kT / 8; ++nt) {
+        const int j = 8 * nt + 2 * t;
+        const float2 ck = *reinterpret_cast<const float2*>(cumK + j);
+        const float2 dk = *reinterpret_cast<const float2*>(dtK + j);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int il = i0 + m0 + gq + 8 * (q >> 1), jl = j0 + j + (q & 1);
+          const float w = ex2(cq[q >> 1] - (q & 1 ? ck.y : ck.x)) *
+                          (q & 1 ? dk.y : dk.x);
+          const float v =
+              full || (jl <= il && il < L) ? m[nt][q] * w : 0.f;
+          if (q >> 1) part1 += cb[nt][q] * v; else part0 += cb[nt][q] * v;
+          m[nt][q] = v;
+        }
+      }
+      // dC_i += M_ij B_j: A = M (split), B(k = j, n) = B_j stored [j][n]
+#pragma unroll
+      for (int kk = 0; kk < kT / 16; ++kk) {
+        if (16 * kk < n_keys) {
+          uint32_t ah[4], al[4];
+          split_frag(m, kk, ah, al);
+#pragma unroll
+          for (int np = 0; np < kMaxN / 16; ++np) {
+            if (16 * np < d.N) {
+              uint32_t bf[4];
+              ldsm_x4_t(bf, sB + (16 * kk + r8 + (mi & 1) * 8) * kHN +
+                                16 * np + (mi >> 1) * 8);
+              mma_bf16(acc[2 * np], ah, bf[0], bf[1]);
+              mma_bf16(acc[2 * np], al, bf[0], bf[1]);
+              mma_bf16(acc[2 * np + 1], ah, bf[2], bf[3]);
+              mma_bf16(acc[2 * np + 1], al, bf[2], bf[3]);
+            }
+          }
+        }
+      }
+      if (!more) break;
+      __syncthreads();  // every warp is done with this stage
+      stage ^= 1;
+    }
+    part0 = quad_sum(part0);
+    part1 = quad_sum(part1);
+    if (t == 0) {
+      if (i0 + m0 + gq < L) row_dcum[bhc * d.Q + i0 + m0 + gq] = part0;
+      if (i0 + m0 + gq + 8 < L)
+        row_dcum[bhc * d.Q + i0 + m0 + gq + 8] = part1;
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = m0 + gq + 8 * half;
+    if (i0 + r >= L) continue;
+    float* out = dCh + ((pos0 + i0 + r) * d.slices() + slice) * d.N;
+#pragma unroll
+    for (int nt = 0; nt < kMaxN / 8; ++nt) {
+      const int n = 8 * nt + 2 * t;
+      if (n < d.N)
+        *reinterpret_cast<float2*>(out + n) =
+            make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
+    }
   }
 }
 
-// ---- pass 3: dC and each row's part of dcum ------------------------------
-template <typename T>
+// ---- bf16, pass 4: dx, dB and each key's sums ----------------------------
 __global__ void __launch_bounds__(kThreads)
-    ssd_bwd_kernel_dc(const T* __restrict__ x, const float* __restrict__ dt,
-                      const T* __restrict__ Bm, const T* __restrict__ Cm,
-                      const T* __restrict__ dy,
+    ssd_bwd_kernel_dbx_tc(const bf16* __restrict__ x,
+                          const float* __restrict__ dt,
+                          const float* __restrict__ Dv,
+                          const bf16* __restrict__ Bm,
+                          const bf16* __restrict__ Cm,
+                          const bf16* __restrict__ dy,
+                          const float* __restrict__ gst,
+                          const float* __restrict__ cum, bf16* __restrict__ dx,
+                          float* __restrict__ dBh, float* __restrict__ key_r,
+                          float* __restrict__ key_u,
+                          float* __restrict__ key_xdy, Dims d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sB = reinterpret_cast<bf16*>(smem_raw);   // key rows [j][n]
+  bf16* sX = sB + kHTileN;                        // a head's [j][p]
+  bf16* sR = sX + kHTileP;      // G hi, lo [p][n]; then two query stages
+  float* sCumJ = reinterpret_cast<float*>(sR + 2 * kHStage);
+  float* sDtJ = sCumJ + kT;
+  float* sCumI = sDtJ + kT;                       // [stage][kT]
+  float* red = sCumI + 2 * kT;
+
+  const int slice = blockIdx.x, c = blockIdx.y;
+  const int n_kt = (d.Q + kT - 1) / kT, B = gridDim.z / n_kt;
+  const int b = blockIdx.z % B, kt = blockIdx.z / B;
+  const int h0 = slice * d.hs, g = h0 / (d.H / d.G);
+  const int c0 = c * d.Q, L = min(d.Q, d.S - c0), j0 = kt * kT;
+  if (j0 >= L) return;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t = lane & 3, m0 = 16 * warp;
+  const int r8 = lane & 7, mi = lane >> 3;
+  const int ra = m0 + gq, rb = m0 + gq + 8;
+  const size_t xr = d.x_row(), bcr = d.bc_row();
+  const size_t pos0 = static_cast<size_t>(b) * d.S + c0;
+  const bf16* Bb = Bm + pos0 * bcr + g * d.N;
+  const bf16* Cb = Cm + pos0 * bcr + g * d.N;
+  const int PN = d.P * d.N;
+
+  load_tile(sB, kHN, Bb + j0 * bcr, bcr, d.N, L - j0);
+  float db[kMaxN / 8][4] = {};   // dB over the slice's heads
+  for (int hh = 0; hh < d.hs; ++hh) {
+    const int h = h0 + hh;
+    const bf16* xb = x + pos0 * xr + h * d.P;
+    const bf16* dyb = dy + pos0 * xr + h * d.P;
+    const float* dtb = dt + pos0 * d.H + h;
+    const size_t bhc = (static_cast<size_t>(b) * d.H + h) * d.nc + c;
+    const float* cumc = cum + bhc * d.Q;
+    if (hh > 0) __syncthreads();   // the last head is done with sX, sR
+    load_tile(sX, kHP, xb + j0 * xr, xr, d.P, L - j0);
+    const bf16* gs = reinterpret_cast<const bf16*>(gst + bhc * PN);
+    load_tile(sR, kHN, gs, d.N, d.N, d.P);
+    load_tile(sR + kHTileN, kHN, gs + PN, d.N, d.N, d.P);
+    cp_async_commit();
+    if (tid < kT) {
+      const bool live = j0 + tid < L;
+      sCumJ[tid] = live ? cumc[j0 + tid] * kLog2e : 0.f;
+      sDtJ[tid] = live ? dtb[static_cast<size_t>(j0 + tid) * d.H] : 0.f;
+    }
+    const float cum_l = cumc[L - 1] * kLog2e;
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // this warp's 16 rows of x as A fragments, for all of its x products
+    uint32_t xf[kMaxP / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kMaxP / 16; ++ks)
+      if (16 * ks < d.P)
+        ldsm_x4(xf[ks], sX + (m0 + r8 + (mi & 1) * 8) * kHP + 16 * ks +
+                            (mi >> 1) * 8);
+    const float te0 = ex2(cum_l - sCumJ[ra]), te1 = ex2(cum_l - sCumJ[rb]);
+    const float dt0 = sDtJ[ra], dt1 = sDtJ[rb];
+    // G B_j (j, p): A = B_j [j][n], B(k = n, p) = G stored [p][n]
+    float dxa[kMaxP / 8][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kMaxN / 16; ++ks) {
+      if (16 * ks < d.N) {
+        uint32_t a[4];
+        ldsm_x4(a, sB + (m0 + r8 + (mi & 1) * 8) * kHN + 16 * ks +
+                       (mi >> 1) * 8);
+#pragma unroll
+        for (int np = 0; np < kMaxP / 16; ++np) {
+          if (16 * np < d.P) {
+            const int o = (16 * np + r8 + (mi >> 1) * 8) * kHN + 16 * ks +
+                          (mi & 1) * 8;
+            uint32_t bh[4], bl[4];
+            ldsm_x4(bh, sR + o);
+            ldsm_x4(bl, sR + kHTileN + o);
+            mma_bf16(dxa[2 * np], a, bh[0], bh[1]);
+            mma_bf16(dxa[2 * np], a, bl[0], bl[1]);
+            mma_bf16(dxa[2 * np + 1], a, bh[2], bh[3]);
+            mma_bf16(dxa[2 * np + 1], a, bl[2], bl[3]);
+          }
+        }
+      }
+    }
+    // t_j dt_j G^T x_j (j, n), 64 columns at a time: A = x_j [j][p],
+    // B(k = p, n) = G stored [p][n]
+#pragma unroll
+    for (int nh = 0; nh < kMaxN / 64; ++nh) {
+      if (64 * nh < d.N) {
+        float gx[8][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < kMaxP / 16; ++ks) {
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            if (16 * ks < d.P && 64 * nh + 16 * np < d.N) {
+              const int o = (16 * ks + r8 + (mi & 1) * 8) * kHN + 64 * nh +
+                            16 * np + (mi >> 1) * 8;
+              uint32_t bh[4], bl[4];
+              ldsm_x4_t(bh, sR + o);
+              ldsm_x4_t(bl, sR + kHTileN + o);
+              mma_bf16(gx[2 * np], xf[ks], bh[0], bh[1]);
+              mma_bf16(gx[2 * np], xf[ks], bl[0], bl[1]);
+              mma_bf16(gx[2 * np + 1], xf[ks], bh[2], bh[3]);
+              mma_bf16(gx[2 * np + 1], xf[ks], bl[2], bl[3]);
+            }
+          }
+        }
+        const float s0 = te0 * dt0, s1 = te1 * dt1;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          db[8 * nh + nt][0] += gx[nt][0] * s0;
+          db[8 * nh + nt][1] += gx[nt][1] * s0;
+          db[8 * nh + nt][2] += gx[nt][2] * s1;
+          db[8 * nh + nt][3] += gx[nt][3] * s1;
+        }
+      }
+    }
+    // v_j = t_j x_j . G B_j
+    float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kMaxP / 8; ++nt) {
+      const int p = 8 * nt + 2 * t;
+      if (p < d.P) {
+        const float2 xa = bf2(sX + ra * kHP + p), xb2 = bf2(sX + rb * kHP + p);
+        v0 += dxa[nt][0] * xa.x + dxa[nt][1] * xa.y;
+        v1 += dxa[nt][2] * xb2.x + dxa[nt][3] * xb2.y;
+      }
+      dxa[nt][0] *= te0;
+      dxa[nt][1] *= te0;
+      dxa[nt][2] *= te1;
+      dxa[nt][3] *= te1;
+    }
+    v0 = te0 * quad_sum(v0);
+    v1 = te1 * quad_sum(v1);
+    __syncthreads();  // every warp is done with G
+
+    // query tile i0 into `stage`: C and dy rows by cp.async, and cum
+    auto fetch = [&](int i0, int stage) {
+      bf16* s = sR + stage * kHStage;
+      load_tile(s, kHN, Cb + i0 * bcr, bcr, d.N, L - i0);
+      load_tile(s + kHTileN, kHP, dyb + i0 * xr, xr, d.P, L - i0);
+      cp_async_commit();
+      if (tid < kT)
+        sCumI[stage * kT + tid] =
+            i0 + tid < L ? cumc[i0 + tid] * kLog2e : 0.f;
+    };
+    fetch(j0, 0);
+    int stage = 0;
+    const float cj[2] = {sCumJ[ra], sCumJ[rb]};
+    const float dj[2] = {dt0, dt1};
+    float rs[2] = {0.f, 0.f};        // sum_i R_ij
+    for (int i0 = j0;; i0 += kT) {
+      const bool more = i0 + kT < L;
+      if (more) {
+        fetch(i0 + kT, stage ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* sCq = sR + stage * kHStage;
+      const bf16* sDq = sCq + kHTileN;
+      const float* cumI = sCumI + stage * kT;
+      // on the diagonal tile this warp's keys see only the queries from m0
+      const int k_lo = i0 == j0 ? m0 / 16 : 0;
+      // B_j C_i^T and x_j dy_i^T (exact): B(k, i) = C_i, dy_i stored [i][k]
+      float s[kT / 8][4] = {}, m[kT / 8][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kMaxN / 16; ++ks) {
+        if (16 * ks < d.N) {
+          uint32_t a[4];
+          ldsm_x4(a, sB + (m0 + r8 + (mi & 1) * 8) * kHN + 16 * ks +
+                         (mi >> 1) * 8);
+#pragma unroll
+          for (int np = 0; np < kT / 16; ++np) {
+            if (np >= k_lo) {
+              uint32_t bf[4];
+              ldsm_x4(bf, sCq + (16 * np + r8 + (mi >> 1) * 8) * kHN +
+                              16 * ks + (mi & 1) * 8);
+              mma_bf16(s[2 * np], a, bf[0], bf[1]);
+              mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < kMaxP / 16; ++ks) {
+#pragma unroll
+        for (int np = 0; np < kT / 16; ++np) {
+          if (16 * ks < d.P && np >= k_lo) {
+            uint32_t bf[4];
+            ldsm_x4(bf, sDq + (16 * np + r8 + (mi >> 1) * 8) * kHP +
+                            16 * ks + (mi & 1) * 8);
+            mma_bf16(m[2 * np], xf[ks], bf[0], bf[1]);
+            mma_bf16(m[2 * np + 1], xf[ks], bf[2], bf[3]);
+          }
+        }
+      }
+      // S^T and M^T: decayed, masked where the tile crosses the diagonal
+      // or S
+      const bool full = i0 > j0 && i0 + kT <= L;
+#pragma unroll
+      for (int nt = 0; nt < kT / 8; ++nt) {
+        const int i = 8 * nt + 2 * t;
+        const float2 ci = *reinterpret_cast<const float2*>(cumI + i);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int jl = j0 + m0 + gq + 8 * (q >> 1), il = i0 + i + (q & 1);
+          const bool live = full || (jl <= il && il < L);
+          const float e = ex2((q & 1 ? ci.y : ci.x) - cj[q >> 1]);
+          const float sv = live ? s[nt][q] * e : 0.f;
+          rs[q >> 1] += sv * m[nt][q];
+          s[nt][q] = sv;
+          m[nt][q] = live ? m[nt][q] * dj[q >> 1] * e : 0.f;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kT / 16; ++kk) {
+        if (kk >= k_lo) {
+          uint32_t ah[4], al[4];
+          // dB_j += M_ij C_i: A = M^T [j][i], B(k = i, n) = C_i [i][n]
+          split_frag(m, kk, ah, al);
+#pragma unroll
+          for (int np = 0; np < kMaxN / 16; ++np) {
+            if (16 * np < d.N) {
+              uint32_t bf[4];
+              ldsm_x4_t(bf, sCq + (16 * kk + r8 + (mi & 1) * 8) * kHN +
+                                16 * np + (mi >> 1) * 8);
+              mma_bf16(db[2 * np], ah, bf[0], bf[1]);
+              mma_bf16(db[2 * np], al, bf[0], bf[1]);
+              mma_bf16(db[2 * np + 1], ah, bf[2], bf[3]);
+              mma_bf16(db[2 * np + 1], al, bf[2], bf[3]);
+            }
+          }
+          // dx_j += S_ij dy_i (times dt_j below): B(k = i, p) = dy_i [i][p]
+          split_frag(s, kk, ah, al);
+#pragma unroll
+          for (int np = 0; np < kMaxP / 16; ++np) {
+            if (16 * np < d.P) {
+              uint32_t bf[4];
+              ldsm_x4_t(bf, sDq + (16 * kk + r8 + (mi & 1) * 8) * kHP +
+                                16 * np + (mi >> 1) * 8);
+              mma_bf16(dxa[2 * np], ah, bf[0], bf[1]);
+              mma_bf16(dxa[2 * np], al, bf[0], bf[1]);
+              mma_bf16(dxa[2 * np + 1], ah, bf[2], bf[3]);
+              mma_bf16(dxa[2 * np + 1], al, bf[2], bf[3]);
+            }
+          }
+        }
+      }
+      if (!more) break;
+      __syncthreads();  // every warp is done with this stage
+      stage ^= 1;
+    }
+
+    rs[0] = quad_sum(rs[0]);
+    rs[1] = quad_sum(rs[1]);
+    const float d_h = Dv[h];
+    float xdy = 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + gq + 8 * half;
+      if (j0 + r >= L) continue;
+      const float dtj = half ? dt1 : dt0, v = half ? v1 : v0;
+      const size_t pos = pos0 + j0 + r;
+      const bf16* dyr = dy + pos * xr + h * d.P;
+      bf16* dxr = dx + pos * xr + h * d.P;
+#pragma unroll
+      for (int nt = 0; nt < kMaxP / 8; ++nt) {
+        const int p = 8 * nt + 2 * t;
+        if (p < d.P) {
+          const float2 y = bf2(dyr + p), xv = bf2(sX + r * kHP + p);
+          xdy += xv.x * y.x + xv.y * y.y;
+          store2<bf16>(dxr + p, dtj * dxa[nt][2 * half] + d_h * y.x,
+                       dtj * dxa[nt][2 * half + 1] + d_h * y.y);
+        }
+      }
+      if (t == 0) {
+        const size_t k = bhc * d.Q + j0 + r;
+        key_r[k] = rs[half] + v;
+        key_u[k] = dtj * v;
+      }
+    }
+    xdy = block_sum(xdy, red);
+    if (tid == 0) key_xdy[bhc * n_kt + kt] = xdy;
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = m0 + gq + 8 * half;
+    if (j0 + r >= L) continue;
+    float* out = dBh + ((pos0 + j0 + r) * d.slices() + slice) * d.N;
+#pragma unroll
+    for (int nt = 0; nt < kMaxN / 8; ++nt) {
+      const int n = 8 * nt + 2 * t;
+      if (n < d.N)
+        *reinterpret_cast<float2*>(out + n) =
+            make_float2(db[nt][2 * half], db[nt][2 * half + 1]);
+    }
+  }
+}
+
+// ---- fp32, pass 3: dC and each row's part of dcum ------------------------
+__global__ void __launch_bounds__(kThreads)
+    ssd_bwd_kernel_dc(const float* __restrict__ x, const float* __restrict__ dt,
+                      const float* __restrict__ Bm,
+                      const float* __restrict__ Cm,
+                      const float* __restrict__ dy,
                       const float* __restrict__ entry,
-                      const float* __restrict__ cum, bool split,
+                      const float* __restrict__ cum,
                       float* __restrict__ dCh, float* __restrict__ row_dcum,
                       Dims d) {
   extern __shared__ __align__(16) float smem[];
@@ -296,7 +1012,7 @@ __global__ void __launch_bounds__(kThreads)
   const float* eslot = entry + bhc * PN;
   for (int i = threadIdx.x * 4; i < PN; i += kThreads * 4)
     *reinterpret_cast<float4*>(sE + (i / d.N) * kLdN + i % d.N) =
-        entry4(eslot, i, PN, split);
+        load4(eslot + i);
   load_col(sCumQ, cumc + i0, 1, min(kT, d.Q - i0));
   __syncthreads();
 
@@ -371,15 +1087,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- pass 4: dx, dB and each key's sums ----------------------------------
-template <typename T>
+// ---- fp32, pass 4: dx, dB and each key's sums ----------------------------
 __global__ void __launch_bounds__(kThreads)
-    ssd_bwd_kernel_dbx(const T* __restrict__ x, const float* __restrict__ dt,
+    ssd_bwd_kernel_dbx(const float* __restrict__ x,
+                       const float* __restrict__ dt,
                        const float* __restrict__ Dv,
-                       const T* __restrict__ Bm, const T* __restrict__ Cm,
-                       const T* __restrict__ dy,
+                       const float* __restrict__ Bm,
+                       const float* __restrict__ Cm,
+                       const float* __restrict__ dy,
                        const float* __restrict__ gst,
-                       const float* __restrict__ cum, T* __restrict__ dx,
+                       const float* __restrict__ cum, float* __restrict__ dx,
                        float* __restrict__ dBh, float* __restrict__ key_r,
                        float* __restrict__ key_u, float* __restrict__ key_xdy,
                        Dims d) {
@@ -410,10 +1127,11 @@ __global__ void __launch_bounds__(kThreads)
   const float* dtb = dt + (static_cast<size_t>(b) * d.S + c0) * d.H + h;
   const size_t bhc = (static_cast<size_t>(b) * d.H + h) * d.nc + c;
   const float* cumc = cum + bhc * d.Q;
+  const int PN = d.P * d.N;
 
   load_rows(sB, kLdN, Bm + bco + j0 * bcr, bcr, d.N, L - j0);
   load_rows(sX, kLdP, x + xo + j0 * xr, xr, d.P, L - j0);
-  load_rows(sG, kLdN, gst + bhc * d.P * d.N, d.N, d.N, d.P, d.P);
+  load_rows(sG, kLdN, gst + bhc * PN, d.N, d.N, d.P, d.P);
   load_col(sCumJ, cumc + j0, 1, min(kT, d.Q - j0));
   load_col(sDtJ, dtb + static_cast<size_t>(j0) * d.H, d.H, L - j0);
   const float cum_l = cumc[L - 1];
@@ -496,16 +1214,16 @@ __global__ void __launch_bounds__(kThreads)
     if (j0 + r >= L) continue;
     const float dtj = half ? dt1 : dt0;
     const size_t pos = static_cast<size_t>(b) * d.S + c0 + j0 + r;
-    const T* dyr = dy + pos * xr + h * d.P;
-    T* dxr = dx + pos * xr + h * d.P;
+    const float* dyr = dy + pos * xr + h * d.P;
+    float* dxr = dx + pos * xr + h * d.P;
 #pragma unroll
     for (int nt = 0; nt < kMaxP / 8; ++nt) {
       const int p = 8 * nt + 2 * t;
       if (p < d.P) {
-        const float y0 = to_f32(dyr[p]), y1 = to_f32(dyr[p + 1]);
+        const float y0 = dyr[p], y1 = dyr[p + 1];
         xdy += sX[r * kLdP + p] * y0 + sX[r * kLdP + p + 1] * y1;
-        dxr[p] = repro::from_f32<T>(dtj * dxa[nt][2 * half] + d_h * y0);
-        dxr[p + 1] = repro::from_f32<T>(dtj * dxa[nt][2 * half + 1] + d_h * y1);
+        dxr[p] = (dtj * dxa[nt][2 * half] + d_h * y0);
+        dxr[p + 1] = (dtj * dxa[nt][2 * half + 1] + d_h * y1);
       }
     }
     float* out = dBh + (pos * d.H + h) * d.N;
@@ -534,7 +1252,7 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ key_r,
                          const float* __restrict__ key_u,
                          const float* __restrict__ key_xdy,
-                         const float* __restrict__ chunk_carry,
+                         const float* __restrict__ carry_part, int n_cc,
                          float* __restrict__ ddt, float* __restrict__ chunk_dA,
                          float* __restrict__ chunk_dD, Dims d) {
   extern __shared__ __align__(16) float sDc[];   // Q values
@@ -549,10 +1267,13 @@ __global__ void __launch_bounds__(kThreads)
     sDc[k] = row_dcum[i] - dtb[static_cast<size_t>(k) * d.H] * key_r[i];
     u += key_u[i];
   }
-  // the chunk's end: sum_j dt_j v_j + exp(cum_L) <E, G>
-  const float tail = block_sum(u, red) + chunk_carry[bhc];
+  // the chunk's end: sum_j dt_j v_j + exp(cum_L) <E, G>, the latter in
+  // the carry's CTAs' parts
+  const float tail = block_sum(u, red);
   if (threadIdx.x == 0) {
-    sDc[L - 1] += tail;
+    float carry = 0.f;
+    for (int k = 0; k < n_cc; ++k) carry += carry_part[bhc * n_cc + k];
+    sDc[L - 1] += tail + carry;
     // the key tiles pass 4 ran: a ragged last chunk may have fewer
     float xdy = 0.f;
     for (int k = 0; k < (L + kT - 1) / kT; ++k)
@@ -593,6 +1314,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---- pass 6: group sums of dB and dC; dA and dD ---------------------------
+// dBh and dCh hold a partial sum for each slice of heads (d.slices() a
+// position, each of one group's heads).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     ssd_bwd_kernel_reduce(const float* __restrict__ dBh,
@@ -621,8 +1344,9 @@ __global__ void __launch_bounds__(kThreads)
   if (i >= total) return;
   const int n = i % d.N, g = (i / d.N) % d.G;
   const size_t pos = i / (static_cast<size_t>(d.G) * d.N);
-  const int per = d.H / d.G;
-  const size_t o = (pos * d.H + static_cast<size_t>(g) * per) * d.N + n;
+  const int per = d.slices() / d.G;
+  const size_t o =
+      (pos * d.slices() + static_cast<size_t>(g) * per) * d.N + n;
   float sb = 0.f, sc = 0.f;
   for (int k = 0; k < per; ++k) {
     sb += dBh[o + static_cast<size_t>(k) * d.N];
@@ -645,6 +1369,12 @@ constexpr size_t kDcBytes =
 constexpr size_t kDbxBytes =
     (kTileN + kTileP + kTileN + kTileP + 2 * kTileK + 3 * kT + kThreads / 32) *
     sizeof(float);
+constexpr size_t kStatesTcBytes =
+    2 * kHStage * sizeof(bf16) + 2 * kT * sizeof(float);
+// the slice's C or B tile, a head's dy or x tile, two stages; then cum and
+// dt rows (and pass 4's `red`)
+constexpr size_t kTcBytes = (kHTileN + kHTileP + 2 * kHStage) * sizeof(bf16) +
+                            (5 * kT + kThreads / 32) * sizeof(float);
 
 template <typename T>
 cudaError_t launch(const void* x, const float* dt, const float* A,
@@ -654,11 +1384,19 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
                    void* dBm, void* dCm, float* dD, float* dinit, float* gst,
                    float* dBCh, float* rows, float* chunk_sums, int B,
                    const Dims& d, cudaStream_t stream) {
+  constexpr bool kTwo = sizeof(T) == 2;
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = allow_smem(ssd_bwd_kernel_states<T>, kStatesBytes);
-    if (e == cudaSuccess) e = allow_smem(ssd_bwd_kernel_dc<T>, kDcBytes);
-    if (e == cudaSuccess) e = allow_smem(ssd_bwd_kernel_dbx<T>, kDbxBytes);
+    cudaError_t e;
+    if constexpr (kTwo) {
+      e = allow_smem(ssd_bwd_kernel_states_tc, kStatesTcBytes);
+      if (e == cudaSuccess) e = allow_smem(ssd_bwd_kernel_dc_tc, kTcBytes);
+      if (e == cudaSuccess) e = allow_smem(ssd_bwd_kernel_dbx_tc, kTcBytes);
+    } else {
+      e = allow_smem(ssd_bwd_kernel_states, kStatesBytes);
+      if (e == cudaSuccess) e = allow_smem(ssd_bwd_kernel_dc, kDcBytes);
+      if (e == cudaSuccess) e = allow_smem(ssd_bwd_kernel_dbx, kDbxBytes);
+    }
     if (e != cudaSuccess) return e;
     configured = true;
   }
@@ -666,36 +1404,51 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
   const T* Bt = static_cast<const T*>(Bm);
   const T* Ct = static_cast<const T*>(Cm);
   const T* dyt = static_cast<const T*>(dy);
-  const bool split = sizeof(T) == 2;
+  const int PN = d.P * d.N, n_cc = (PN + kCarry - 1) / kCarry;
   const int n_t = (d.Q + kT - 1) / kT;
   const size_t plane = static_cast<size_t>(B) * d.H * d.nc * d.Q;
   const size_t chunks = static_cast<size_t>(B) * d.H * d.nc;
+  float* own = gst;
+  float* G = gst + chunks * PN;
   float* dBh = dBCh;
-  float* dCh = dBCh + static_cast<size_t>(B) * d.S * d.H * d.N;
+  float* dCh = dBCh + static_cast<size_t>(B) * d.S * d.slices() * d.N;
   float *row_dcum = rows, *key_r = rows + plane, *key_u = rows + 2 * plane;
   float* key_xdy = rows + 3 * plane;   // B * H * nc * n_t values
-  float *chunk_carry = chunk_sums, *chunk_dA = chunk_sums + chunks,
-        *chunk_dD = chunk_sums + 2 * chunks;
+  float *chunk_dA = chunk_sums, *chunk_dD = chunk_sums + chunks;
+  float* carry_part = chunk_sums + 2 * chunks;   // B * H * nc * n_cc values
 
-  ssd_bwd_kernel_states<T><<<dim3(d.nc, d.H, B), kThreads, kStatesBytes,
-                             stream>>>(dyt, Ct, cum, gst, d);
+  if constexpr (kTwo)
+    ssd_bwd_kernel_states_tc<<<dim3(d.nc, d.H, B), kThreads, kStatesTcBytes,
+                               stream>>>(dyt, Ct, cum, own, d);
+  else
+    ssd_bwd_kernel_states<<<dim3(d.nc, d.H, B), kThreads, kStatesBytes,
+                            stream>>>(dyt, Ct, cum, own, d);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  ssd_bwd_kernel_carry<<<dim3(d.H, B), kThreads, 0, stream>>>(
-      gst, entry, cum, dfin, dinit, chunk_carry, split, d);
+  ssd_bwd_kernel_carry<<<dim3(n_cc, d.H, B), kThreads, 0, stream>>>(
+      own, G, entry, cum, dfin, dinit, carry_part, kTwo, d);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  ssd_bwd_kernel_dc<T><<<dim3(d.H, d.nc, n_t * B), kThreads, kDcBytes,
-                         stream>>>(xt, dt, Bt, Ct, dyt, entry, cum, split,
-                                   dCh, row_dcum, d);
+  const dim3 tiles(d.slices(), d.nc, n_t * B);
+  if constexpr (kTwo)
+    ssd_bwd_kernel_dc_tc<<<tiles, kThreads, kTcBytes, stream>>>(
+        xt, dt, Bt, Ct, dyt, entry, cum, dCh, row_dcum, d);
+  else
+    ssd_bwd_kernel_dc<<<tiles, kThreads, kDcBytes, stream>>>(
+        xt, dt, Bt, Ct, dyt, entry, cum, dCh, row_dcum, d);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  ssd_bwd_kernel_dbx<T><<<dim3(d.H, d.nc, n_t * B), kThreads, kDbxBytes,
-                          stream>>>(xt, dt, D, Bt, Ct, dyt, gst, cum,
-                                    static_cast<T*>(dx), dBh, key_r, key_u,
-                                    key_xdy, d);
+  if constexpr (kTwo)
+    ssd_bwd_kernel_dbx_tc<<<tiles, kThreads, kTcBytes, stream>>>(
+        xt, dt, D, Bt, Ct, dyt, G, cum, static_cast<T*>(dx), dBh, key_r,
+        key_u, key_xdy, d);
+  else
+    ssd_bwd_kernel_dbx<<<tiles, kThreads, kDbxBytes, stream>>>(
+        xt, dt, D, Bt, Ct, dyt, G, cum, static_cast<T*>(dx), dBh, key_r,
+        key_u, key_xdy, d);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   ssd_bwd_kernel_decay<<<dim3(d.nc, d.H, B), kThreads, d.Q * sizeof(float),
                          stream>>>(dt, A, row_dcum, key_r, key_u, key_xdy,
-                                   chunk_carry, ddt, chunk_dA, chunk_dD, d);
+                                   carry_part, n_cc, ddt, chunk_dA, chunk_dD,
+                                   d);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const size_t total = static_cast<size_t>(B) * d.S * d.G * d.N;
   const unsigned blocks =
@@ -710,22 +1463,24 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
 
 // dfin may be null (a zero gradient). entry and cum are the forward's
 // scratch (ssd_scan_launch's `entry` and `cum`, written with the same bf16
-// flag). Scratch, each written before it is read: gst B*H*nc*P*N floats,
-// dBCh 2*B*S*H*N, rows 4*B*H*nc*Q, chunk_sums 3*B*H*nc (nc = ceil(S/Q)).
-// All tensors contiguous on the device; x, Bm, Cm, dy, dfin, dinit and the
-// scratch 16-byte aligned.
+// flag). hs: the heads a CTA of passes 3 and 4 takes, dividing H / G (1
+// for fp32). Scratch, each written before it is read: gst 2*B*H*nc*P*N
+// floats, dBCh 2*B*S*(H/hs)*N, rows 4*B*H*nc*Q, chunk_sums
+// B*H*nc*(2 + ceil(P*N/512)) (nc = ceil(S/Q)). All tensors contiguous on
+// the device; x, Bm, Cm, dy, dfin, dinit and the scratch 16-byte aligned.
 extern "C" int ssd_scan_bwd_launch(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* D, const void* dy, const void* dfin,
     const void* entry, const void* cum, void* dx, void* ddt, void* dA,
     void* dBm, void* dCm, void* dD, void* dinit, void* gst, void* dBCh,
     void* rows, void* chunk_sums, int B, int S, int H, int P, int G, int N,
-    int Q, int bf16, void* stream) {
+    int Q, int hs, int bf16, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || Q <= 0 || Q > 4096 || G <= 0 ||
       H % G != 0 || P <= 0 || P > kMaxP || N <= 0 || N > kMaxN ||
-      P % 16 != 0 || N % 16 != 0)
+      P % 16 != 0 || N % 16 != 0 || hs <= 0 || (H / G) % hs != 0 ||
+      (!bf16 && hs != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Dims d{S, H, P, G, N, Q, (S + Q - 1) / Q};
+  const Dims d{S, H, P, G, N, Q, (S + Q - 1) / Q, hs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };

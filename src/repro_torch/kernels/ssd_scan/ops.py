@@ -15,7 +15,8 @@ for every S, or raises, and trains through the backward kernel in
 ``csrc/ssd_scan_bwd.cu`` (``ssd_scan_backward``), whose plain version is
 ``ssd_scan_bwd``, the gradient in closed form. ``ssd_split_ref`` repeats
 the forward kernel's three passes and its split-bf16 products in plain
-PyTorch; no dispatch reaches it."""
+PyTorch, and ``ssd_scan_bwd(..., split=True)`` the backward kernel's;
+no dispatch reaches either."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -186,7 +187,8 @@ def ssd_split_ref(x, dt, A, Bm, Cm, D,
 
 
 def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, dy, dfinal, *,
-                 chunk: int, block_elems: int = 1 << 26):
+                 chunk: int, block_elems: int = 1 << 26,
+                 split: bool = False):
     """Gradients (dx, ddt, dA, dBm, dCm, dD, dinit) of ``ssd_scan`` for the
     output gradient ``dy`` and the final state's gradient ``dfinal`` (None:
     zero), in closed form, in fp32, returned in the inputs' types (dt, A,
@@ -223,7 +225,16 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, dy, dfinal, *,
     and dC sum over each group's H / G heads.
 
     Chunks go in blocks whose (B, chunks, H, Q, Q) score tensors hold at
-    most ``block_elems`` values."""
+    most ``block_elems`` values.
+
+    ``split`` takes the backward kernel's numerics for bf16 inputs: the
+    cumsum of dt * A summed in double and rounded to fp32, the entering
+    states as the forward kernel carries them (``ssd_split_ref``), and
+    each product with an fp32 operand (the decayed dy of the reverse
+    carry, E, G, the masked scores M and S) as bf16 hi and lo parts against
+    the exact other operand (``_split_dot``); C B^T and dy x^T are exact.
+    Its inputs are bf16 (or fp32 holding bf16 values, for gradients in fp32
+    without the outputs' rounding)."""
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     q = min(int(chunk), s)
@@ -237,13 +248,16 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, dy, dfinal, *,
     xc, dyc, dtc = chunks(x), chunks(dy), chunks(dt)  # (B, C, Q, H[, P])
     Bc = chunks(_expand_groups(Bm, h))                # (B, C, Q, H, N)
     Cc = chunks(_expand_groups(Cm, h))
-    cum = torch.cumsum(dtc * A.float(), dim=2)        # (B, C, Q, H)
+    if split:
+        cum = torch.cumsum((dtc * A.float()).double(), dim=2).float()
+    else:
+        cum = torch.cumsum(dtc * A.float(), dim=2)    # (B, C, Q, H)
     last = cum[:, :, -1]                              # (B, C, H)
     to_end = torch.exp(last[:, :, None] - cum)        # t_j
 
     # the states entering each chunk, as the forward carries them
-    own = torch.einsum("bcqhn,bcqhp->bchpn", Bc,
-                       xc * (to_end * dtc)[..., None])
+    own = _split_dot("bcqhn,bcqhp->bchpn", Bc,
+                     xc * (to_end * dtc)[..., None], split)
     entry = [torch.zeros((b, h, p, n), dtype=f32, device=dev)
              if init_state is None else init_state.float()]
     for ci in range(c - 1):
@@ -252,8 +266,8 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, dy, dfinal, *,
     E = torch.stack(entry, dim=1)                     # (B, C, H, P, N)
     del own, entry
     # the reverse carry: G, the gradient of the state leaving each chunk
-    dy_in = torch.einsum("bcqhp,bcqhn->bchpn",
-                         dyc * torch.exp(cum)[..., None], Cc)
+    dy_in = _split_dot("bcqhn,bcqhp->bchpn", Cc,
+                       dyc * torch.exp(cum)[..., None], split)
     G = torch.zeros((b, h, p, n), dtype=f32, device=dev) \
         if dfinal is None else dfinal.float()
     leave = [None] * c
@@ -285,16 +299,16 @@ def ssd_scan_bwd(x, dt, A, Bm, Cm, D, init_state, dy, dfinal, *,
         R = S * dyx
         W = R * dtj
         del e
-        dC_int = torch.einsum("bcihp,bchpn->bcihn", dy_, E_) \
+        dC_int = _split_dot("bcihp,bchpn->bcihn", dy_, E_, split) \
             * torch.exp(cm)[..., None]
-        GB = torch.einsum("bchpn,bcjhn->bcjhp", G_, B_)
-        dCh[:, sl] = torch.einsum("bchij,bcjhn->bcihn", M, B_) + dC_int
-        dBh[:, sl] = torch.einsum("bchij,bcihn->bcjhn", M, C_) \
+        GB = _split_dot("bcjhn,bchpn->bcjhp", B_, G_, split)
+        dCh[:, sl] = _split_dot("bcjhn,bchij->bcihn", B_, M, split) + dC_int
+        dBh[:, sl] = _split_dot("bcihn,bchij->bcjhn", C_, M, split) \
             + (te * dt_)[..., None] \
-            * torch.einsum("bcjhp,bchpn->bcjhn", x_, G_)
+            * _split_dot("bcjhp,bchpn->bcjhn", x_, G_, split)
         dx[:, sl] = dt_[..., None] * (
-            torch.einsum("bchij,bcihp->bcjhp", S, dy_) + te[..., None] * GB) \
-            + Dv * dy_
+            _split_dot("bcihp,bchij->bcjhp", dy_, S, split)
+            + te[..., None] * GB) + Dv * dy_
         v = te * (x_ * GB).sum(-1)                    # (B, c, Q, H)
         u = dt_ * v
         ddt[:, sl] = R.sum(-2).permute(0, 1, 3, 2) + v
@@ -463,15 +477,32 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+# CTAs of the backward's passes 3 and 4 that keep the card busy: past
+# this, a CTA takes several heads of a group (``_heads_per_cta``)
+_FILL_CTAS = 1024
+
+
+def _heads_per_cta(b, h, g, nc, n_t) -> int:
+    """Heads a CTA of the bf16 backward's passes 3 and 4 takes: 4 or 2 of
+    one group's, where that still leaves ``_FILL_CTAS`` CTAs, else 1."""
+    for hs in (4, 2):
+        if (h // g) % hs == 0 and b * (h // hs) * nc * n_t >= _FILL_CTAS:
+            return hs
+    return 1
+
+
 def ssd_scan_backward(x, dt, A, Bm, Cm, D, dy, dfinal, entry, cum, *,
                       chunk: int):
     """Kernel B4's backward on CUDA (``csrc/ssd_scan_bwd.cu``), the
     backward of ``_SSDScan``: the gradients (dx, ddt, dA, dBm, dCm, dD,
-    dinit) that ``ssd_scan_bwd`` computes in PyTorch ops, from inputs the
-    forward kernel took (``chunk`` as it ran, ``min(chunk, S)``), the
-    output gradient ``dy``, the final state's gradient ``dfinal`` (None:
-    zero) and the forward's scratch ``entry`` and ``cum`` (``_launch``).
-    Counts its launch in ``ssd_scan_backward.launches``."""
+    dinit) that ``ssd_scan_bwd`` computes in PyTorch ops (for bf16 inputs
+    with ``split=True``'s numerics), from inputs the forward kernel took
+    (``chunk`` as it ran, ``min(chunk, S)``), the output gradient ``dy``,
+    the final state's gradient ``dfinal`` (None: zero) and the forward's
+    scratch ``entry`` and ``cum`` (``_launch``). For bf16 inputs a CTA of
+    passes 3 and 4 takes ``_heads_per_cta`` of a group's heads, which sets
+    the order of dB's and dC's sums over heads, not what they sum. Counts
+    its launch in ``ssd_scan_backward.launches``."""
     refuse_dtensor("ssd_scan_backward", x, dt, A, Bm, Cm, D, dy, dfinal,
                    entry, cum)
     if x.device.type != "cuda":
@@ -495,13 +526,17 @@ def ssd_scan_backward(x, dt, A, Bm, Cm, D, dy, dfinal, entry, cum, *,
     ddt = torch.empty((b, s, h), dtype=f32, device=dev)
     dA, dD = (torch.empty((h,), dtype=f32, device=dev) for _ in range(2))
     dinit = torch.empty((b, h, p, n), dtype=f32, device=dev)
-    # scratch: per chunk the reverse carry's product, then the gradient of
-    # the state leaving it; dB and dC of each head; per position the parts
-    # of the decay's gradient; per chunk the carry's, dA's and dD's parts
-    gst = torch.empty((b, h, nc, p, n), dtype=f32, device=dev)
-    dbch = torch.empty((2, b, s, h, n), dtype=f32, device=dev)
+    # scratch: per chunk the reverse carry's product, and the gradient of
+    # the state leaving it; dB and dC of each slice of hs heads; per
+    # position the parts of the decay's gradient; per chunk dA's and dD's
+    # parts and each carry CTA's part
+    bf16 = x.dtype == torch.bfloat16
+    hs = _heads_per_cta(b, h, g, nc, -(-chunk // 64)) if bf16 else 1
+    gst = torch.empty((2, b, h, nc, p, n), dtype=f32, device=dev)
+    dbch = torch.empty((2, b, s, h // hs, n), dtype=f32, device=dev)
     rows = torch.empty((4, b, h, nc, chunk), dtype=f32, device=dev)
-    sums = torch.empty((3, b, h, nc), dtype=f32, device=dev)
+    sums = torch.empty((b * h * nc * (2 + -(-p * n // 512)),), dtype=f32,
+                       device=dev)
     _build.module().ssd_scan_bwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), D.data_ptr(), dy.data_ptr(),
@@ -509,7 +544,7 @@ def ssd_scan_backward(x, dt, A, Bm, Cm, D, dy, dfinal, entry, cum, *,
         cum.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
         dBm.data_ptr(), dCm.data_ptr(), dD.data_ptr(), dinit.data_ptr(),
         gst.data_ptr(), dbch.data_ptr(), rows.data_ptr(), sums.data_ptr(),
-        b, s, h, p, g, n, chunk, int(x.dtype == torch.bfloat16),
+        b, s, h, p, g, n, chunk, hs, int(bf16),
         torch._C._cuda_getCurrentRawStream(x.get_device()))
     ssd_scan_backward.launches += 1
     return dx, ddt, dA, dBm, dCm, dD, dinit

@@ -15,6 +15,15 @@ them. Tolerances: the forward at 2e-5 (fp32) and 2e-2 (bf16), the final
 state at 1e-3 (the reference's ``test_ssd_sweep``); every gradient within
 1e-4 (fp32) or 2e-2 (bf16) of its largest magnitude.
 
+For bf16 inputs the backward kernel is also held against its own numerics
+in plain PyTorch, ``ssd_scan_bwd(..., split=True)`` (every product with an
+fp32 operand as bf16 hi and lo parts), within ``SPLIT_REL`` = 5e-3 of each
+gradient's largest magnitude (rtol the same): what is left is the order of
+fp32 sums and the bf16 rounding of dx, dB and dC, one bf16 step (2^-8 of
+the value) where the two fp32 values round apart. It is checked at
+mamba2-1.3b's and zamba2-7b's training shapes and at two groups, and its
+outputs are the same, bit for bit, from call to call (no atomics).
+
 These tests need an NVIDIA card and nvcc (the kernels are built at first
 use); without a card they skip. On the GPU machine:
 
@@ -36,6 +45,8 @@ Y_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
          torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SPLIT_REL = 5e-3     # bf16: the kernel against ssd_scan_bwd(split=True)
+NAMES = ("dx", "ddt", "dA", "dBm", "dCm", "dD", "dinit")
 # (b, s, h, p, g, n, chunk): test_torch_ssd.py's grid (its first case's
 # state of 8 raised to 16, the kernel's multiple), then ragged last chunks,
 # one at the models' head dim, state and chunk; then a chunk of 100, whose
@@ -135,10 +146,14 @@ def test_backward_kernel_matches_plain(card, b, s, h, p, g, n, chunk, dtype,
     outs = [yp, fp] if with_dfinal else [yp]
     auto = torch.autograd.grad(outs, [t for t in ps if t is not None],
                                grads_out)
-    names = ("dx", "ddt", "dA", "dBm", "dCm", "dD", "dinit")
-    for name, gk, gc, ga in zip(names, got, closed, auto):
+    for name, gk, gc, ga in zip(NAMES, got, closed, auto):
         _grad_close(gk, gc, GRAD_REL[dtype], f"{name} vs ssd_scan_bwd")
         _grad_close(gk, ga, GRAD_REL[dtype], f"{name} vs autograd")
+    if dtype == torch.bfloat16:
+        split = ssd_scan_bwd(*ins, dy, dfin if with_dfinal else None,
+                             chunk=chunk, split=True)
+        for name, gk, gs in zip(NAMES, got, split):
+            _grad_close(gk, gs, SPLIT_REL, f"{name} vs split")
 
 
 def test_backward_kernel_direct_call(card):
@@ -155,3 +170,69 @@ def test_backward_kernel_direct_call(card):
     for gk, gc in zip(got, want):
         _grad_close(gk, gc, 1e-4, "direct")
 
+
+
+# (b, s, h, p, g, n, chunk, init): mamba2-1.3b's and zamba2-7b's training
+# microbatches (2 x 4096 tokens from a zero state), and two groups at the
+# models' head dim, state and chunk, with an initial state
+TRAIN_SHAPES = [(2, 4096, 64, 64, 1, 128, 256, False),
+                (2, 4096, 112, 64, 1, 64, 256, False),
+                (2, 1024, 8, 64, 2, 128, 256, True)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,init", TRAIN_SHAPES)
+def test_backward_kernel_at_training_shapes(card, b, s, h, p, g, n, chunk,
+                                            init):
+    """bf16 at the training paths' shapes: the kernel against the closed
+    form and autograd of the plain forward at ``GRAD_REL``, and against its
+    split numerics at ``SPLIT_REL``; a second call gives the same bits."""
+    from repro_torch.kernels.ssd_scan.ops import _check, _launch
+    dtype = torch.bfloat16
+    ins, dy, dfin = _inputs(card, b, s, h, p, g, n, dtype, seed=6,
+                            init=init)
+    dfin = dfin if init else None
+    q = _check(*ins, chunk)
+    _, _, entry, cum = _launch(*ins, q)
+    got = ssd_scan_backward(*ins[:6], dy, dfin, entry, cum, chunk=q)
+    again = ssd_scan_backward(*ins[:6], dy, dfin, entry, cum, chunk=q)
+    torch.cuda.synchronize()
+    for name, a, a2 in zip(NAMES, got, again):
+        assert torch.equal(a, a2), f"{name}: two calls differ"
+    closed = ssd_scan_bwd(*ins, dy, dfin, chunk=q)
+    split = ssd_scan_bwd(*ins, dy, dfin, chunk=q, split=True)
+    for name, gk, gc, gs in zip(NAMES, got, closed, split):
+        _grad_close(gk, gc, GRAD_REL[dtype], f"{name} vs ssd_scan_bwd")
+        _grad_close(gk, gs, SPLIT_REL, f"{name} vs split")
+    del closed, split
+    ps = [t.detach().clone().requires_grad_() if t is not None else None
+          for t in ins]
+    yp, fp = _plain(*ps, q)
+    outs, cot = ([yp, fp], [dy, dfin]) if init else ([yp], [dy])
+    auto = torch.autograd.grad(outs, [t for t in ps if t is not None], cot)
+    for name, gk, ga in zip(NAMES, got, auto):
+        _grad_close(gk, ga, GRAD_REL[dtype], f"{name} vs autograd")
+
+
+@pytest.mark.parametrize("hs", [1, 2, 4])
+def test_backward_heads_per_cta_agree(card, monkeypatch, hs):
+    """The heads a CTA of passes 3 and 4 takes (``_heads_per_cta``) change
+    only the order of dB's and dC's sums over a group's heads: every
+    gradient as with the wrapper's choice, dx, ddt, dA, dD and dinit bit
+    for bit. The kernel refuses a count that does not divide a group's
+    heads."""
+    from repro_torch.kernels.ssd_scan import ops
+    ins, dy, dfin = _inputs(card, 2, 1000, 8, 64, 2, 128, torch.bfloat16,
+                            seed=7)
+    q = ops._check(*ins, 256)
+    _, _, entry, cum = ops._launch(*ins, q)
+    want = ssd_scan_backward(*ins[:6], dy, dfin, entry, cum, chunk=q)
+    monkeypatch.setattr(ops, "_heads_per_cta", lambda *a: hs)
+    got = ssd_scan_backward(*ins[:6], dy, dfin, entry, cum, chunk=q)
+    for name, a, w in zip(NAMES, got, want):
+        if name in ("dBm", "dCm"):
+            _grad_close(a, w, SPLIT_REL, name)
+        else:
+            assert torch.equal(a, w), name
+    monkeypatch.setattr(ops, "_heads_per_cta", lambda *a: 3)
+    with pytest.raises(RuntimeError):
+        ssd_scan_backward(*ins[:6], dy, dfin, entry, cum, chunk=q)

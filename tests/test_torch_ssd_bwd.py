@@ -10,7 +10,16 @@ final-state gradient; and against torch autograd of the port's own
 Tolerance: each gradient within rtol 1e-4 plus 1e-5 of its largest
 magnitude in fp32 (``tests/test_torch_training.py``'s GRAD), within 2e-2
 of its largest magnitude in bf16 (the inputs' and the gradients'
-rounding)."""
+rounding).
+
+``ssd_scan_bwd(..., split=True)`` takes the backward kernel's numerics for
+bf16 inputs (each product with an fp32 operand as bf16 hi and lo parts,
+the cumsum in double). It is held against ``jax.vjp`` of the reference at
+the bf16 tolerance, and, on fp32 tensors holding the same bf16 values (so
+that no output is rounded to bf16), against the fp32 closed form within
+``SPLIT_TOL``: 1e-4 of each gradient's largest magnitude (the split keeps
+~16 bits of each fp32 operand; the error seen is ~1e-5 at most), where
+one bf16 pass would leave ~2^-8."""
 import numpy as np
 import pytest
 
@@ -26,6 +35,7 @@ from repro_torch.kernels.ssd_scan import (ssd_chunked_ref,  # noqa: E402
 from test_torch_ssd import GRID, _inputs  # noqa: E402
 
 NAMES = ("dx", "ddt", "dA", "dBm", "dCm", "dD", "dinit")
+SPLIT_TOL = 1e-4     # of each gradient's largest: split vs fp32 closed form
 
 
 def _tol(dtype, want):
@@ -119,3 +129,39 @@ def test_bwd_blocks_of_chunks_agree():
     blocks = ssd_scan_bwd(*T, dy, dfinal, chunk=64, block_elems=1)
     for name, a, b in zip(NAMES, whole, blocks):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6, msg=name)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", GRID)
+@pytest.mark.parametrize("init", [True, False])
+@pytest.mark.parametrize("with_dfinal", [True, False])
+def test_split_bwd_matches_jax_vjp_of_chunked(b, s, h, p, g, n, chunk, init,
+                                              with_dfinal):
+    """The backward kernel's bf16 numerics in plain PyTorch against the
+    reference's autodiff, at the bf16 tolerance."""
+    J, T = _inputs(b, s, h, p, g, n, jnp.bfloat16, init=init)
+    cot, (dy, dfinal) = _cotangents(b, s, h, p, n, jnp.bfloat16, with_dfinal)
+    want = _vjp(lambda *a: jax_chunked(*a, chunk=chunk), J, init, cot)
+    got = ssd_scan_bwd(*T, dy, dfinal, chunk=chunk, split=True)
+    assert got[0].dtype == torch.bfloat16 and got[3].dtype == torch.bfloat16
+    _check(got, want, jnp.bfloat16, init)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", GRID + [
+    (1, 1024, 2, 64, 1, 128, 256), (2, 50, 4, 16, 2, 8, 16),
+    (1, 300, 2, 64, 1, 128, 256)])
+@pytest.mark.parametrize("init", [True, False])
+def test_split_bwd_near_the_fp32_closed_form(b, s, h, p, g, n, chunk, init):
+    """The split's own error, without the outputs' bf16 rounding: on fp32
+    tensors holding bf16 values, every gradient within ``SPLIT_TOL`` of its
+    largest of the fp32 closed form's, at the models' head dim, state and
+    chunk and at a ragged S too."""
+    _, T = _inputs(b, s, h, p, g, n, jnp.bfloat16, seed=15, init=init)
+    _, (dy, dfinal) = _cotangents(b, s, h, p, n, jnp.bfloat16, True, seed=16)
+    T = [None if t is None else t.float() for t in T]
+    got = ssd_scan_bwd(*T, dy.float(), dfinal, chunk=chunk, split=True)
+    want = ssd_scan_bwd(*T, dy.float(), dfinal, chunk=chunk)
+    for name, a, w in zip(NAMES, got, want):
+        assert a.dtype == torch.float32, name
+        scale = float(w.abs().max())
+        torch.testing.assert_close(a, w, rtol=SPLIT_TOL,
+                                   atol=SPLIT_TOL * scale, msg=name)
