@@ -7,8 +7,9 @@
    for fp32 matmuls and convolutions.
 2. Builds the port's CUDA kernels from ``src/repro_torch/kernels/**/csrc``
    with nvcc for sm_90a, and prints the build time and ptxas's register and
-   spill report, with a ``[build] B1 ptxas`` line of B1's instantiations;
-   a spill in any of them raises.
+   spill report, with a ``[build] B1 ptxas`` line of B1's instantiations
+   and a ``[build] B2 backward ptxas`` line of the backward's bf16 main
+   pass; a spill in any of them raises.
 3. Kernel phases: each kernel (B1 paged decode, B2 flash attention, B3
    RMSNorm) runs through its wrapper on the card at the shapes of the
    paths below (llama2-7b's, then mamba2-1.3b's and zamba2-7b's, then
@@ -3617,6 +3618,13 @@ def main() -> int:
             v.get("spill_stores", 1) or v.get("spill_loads", 1)
             for v in b1.values())):
         raise AssertionError(f"B1: ptxas spills, or no report: {b1}")
+    b2 = ptxas_report(_build.ptxas_log(), "flash_bwd_bf16_kernel")
+    log("[build] B2 backward ptxas: " + json.dumps(b2))
+    if _build.build_seconds() is not None and (len(b2) < 3 or any(
+            v.get("spill_stores", 1) or v.get("spill_loads", 1)
+            for v in b2.values())):
+        raise AssertionError(f"B2 backward: ptxas spills, or no report: "
+                             f"{b2}")
 
     timer = Timer(torch)
     cases = kernel_phases(torch, F, timer)

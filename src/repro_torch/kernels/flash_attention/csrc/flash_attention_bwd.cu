@@ -37,24 +37,38 @@
 //      rows and the group, added to every key's dV (pass 2 skips such a
 //      sequence). Launched only for bf16 or with kv_len.
 //
-// bf16 (tensor cores): a CTA holds 128 keys (two consumer warpgroups of 64
-// keys each), a producer warp and a dQ warp. The producer loads K and V
-// once with TMA, then each visit's Q and dO tiles (64 rows) into a ring of
-// two stages, with lse (pre-multiplied by log2 e) and delta beside them.
-// Each consumer warpgroup computes, with wgmma and fp32 accumulators:
+// bf16 (tensor cores): a CTA holds 128 keys, two consumer warpgroups of 64
+// keys each, and a third warpgroup whose warp 0 loads and whose warp 1
+// reduces dQ; setmaxnreg gives its registers to the consumers (240 each).
+// The loading warp brings K and V once with TMA, then each visit's lse (in
+// log2 units) and delta with its lanes and then, from lane 0, its Q and dO
+// tiles (64 rows) with TMA into a ring of two stages. (Issued before the
+// lanes' loads, those TMA loads made zamba2-7b's shape 30% slower.) Each
+// consumer warpgroup computes, with wgmma and fp32 accumulators:
 //   S^T = K Q^T and dP^T = V dO^T (both operands K-major, as TMA wrote them),
 //   P^T and dS^T in registers (exp2 of the log2-scaled scores less lse;
 //   the mask only on visits whose tile crosses Sq, kv_len or the diagonal),
-//   dV += P^T dO and dK += dS^T Q (P^T and dS^T as bf16 A fragments from
-//   registers, dO and Q read MN-major: no transpose anywhere),
-//   dS written to shared memory as bf16 in the 128-byte swizzled layout of
-//   a K-major A operand, and once both warpgroups' halves are there,
-//   dQ = dS K over the CTA's 128 keys, each warpgroup one 64-column panel of
-//   D (K read MN-major), written to one of two shared fp32 tiles (128-byte
-//   swizzled in boxes of 32 columns, so a warp's writes take two
-//   wavefronts) that the dQ warp adds to the accumulator with TMA
-//   reductions while the consumers go on (vector atomics issued by the
-//   consumers themselves held them up for a fifth of the kernel's time).
+//   dS written as bf16 into its key panel of one of two shared dS tiles
+//   (the 128-byte swizzled layout of a K-major A operand),
+//   then, in one group: dQ of the visit before (dS over the CTA's 128 keys,
+//   both warpgroups' halves written a visit ago, times one 64-column panel
+//   of K read MN-major; for D = 64 its own half of dS times its own 64
+//   keys), dV += P^T dO and dK += dS^T Q (P^T and dS^T as bf16 A fragments
+//   from registers, dO and Q read MN-major: no transpose anywhere).
+// Deferring dQ by a visit removes the barrier that joined the warpgroups
+// every visit (dQ needs both halves of dS): each waits on mbarriers for
+// the other's half of the dS tile of the visit before, written long since.
+// So the two can issue their products in turns (named barriers, as the
+// forward's consumers do), two a visit each, warpgroup 0 first: one's exps,
+// dS and stores run while the other's products hold the tensor cores
+// (without the turns the pass took 8% longer at granite-3-8b's training
+// shape on an H100).
+// Its dQ panel goes to one of two shared fp32 tiles (128-byte swizzled in
+// boxes of 32 columns, so a warp's writes take two wavefronts) that the dQ
+// warp adds to the accumulator with TMA reductions. The warpgroup's role
+// is no template argument and no branch lies between a product's issue
+// and its wait, so both run one copy of the code and ptxas serializes no
+// wgmma.
 // fp32 (no fp32 tensor-core product without TF32 rounding): one CTA of 256
 // threads per 64 keys, plain fp32 FMAs from padded shared tiles as the fp32
 // forward does; each thread owns a 4 x 4 block of the score tiles and a
@@ -63,8 +77,22 @@
 // What bounds it on the H100: operations. At granite-3-8b's training shape
 // (B = 2, S = 4096, 32/8 heads of 128, causal, bf16) the five products are
 // 2.5 times the forward's, 687 GFLOP, 0.695 ms at 989 TFLOP/s, against 0.12
-// ms for the bytes; the kernel keeps every product on wgmma and every
-// intermediate (S, P, dP, dS) in registers or shared memory.
+// ms for the bytes. A visit of a 64-row query tile does five products of
+// 1.05 MFLOP a warpgroup, 1.40 us at an SM's share of the peak; it takes
+// ~2.7 us. The products with N = 64 read both operands from shared memory,
+// ~368 KB of shared traffic a visit with the dQ stores and reductions, and
+// a warpgroup spends most of a visit off the tensor cores: exps, dS, dQ
+// stores, and waits on its stage's loads. Key tiles launch in order, the
+// first first: under causal masking key tile 0 is seen from every query
+// tile, so the longest CTAs start first (the reverse order is 1.7-1.8x
+// slower).
+//
+// Measured and not kept (PERF.md): a 256-thread CTA with no loading
+// warpgroup (its loads and reductions, issued by a consumer warp, held
+// that warpgroup up); Q and dO released before the deferred dQ product;
+// the convert pass folded into this one (the CTA that finishes a query
+// tile converts it: 3x slower, the dQ warp waiting on reductions to
+// complete).
 #include <cuda.h>
 #include <limits.h>
 
@@ -424,26 +452,33 @@ struct BwdConfig {
   static constexpr int NP = (D + kPanel - 1) / kPanel;  // column panels
   static constexpr int KS = D / 16;             // k-steps over D
   static constexpr int ST = 2;                  // Q/dO ring depth
-  static constexpr int THREADS = 384;           // 2 consumer WGs, 1 producer
+  static constexpr int THREADS = 384;  // 2 consumer WGs (64 keys each), 1 more
   static constexpr int Q_ELEMS = BQ * NP * kPanel;   // a Q or dO tile
   static constexpr int KV_ELEMS = BK * NP * kPanel;  // the K or V tile
   static constexpr int DS_ELEMS = BQ * BK;           // dS, 2 key panels
   static constexpr int Q_BYTES = Q_ELEMS * 2;
   static constexpr int KV_BYTES = KV_ELEMS * 2;
-  // a dQ tile: BQ rows x the panels' columns in fp32, as boxes of 32
-  // columns (128 bytes a row), two tiles
-  static constexpr int DQ_BOXES = NP * 2;
-  static constexpr int DQ_ELEMS = BQ * NP * kPanel;
+  // each warpgroup's dQ panel: 64 columns of dQ over all 128 keys, or for
+  // D = 64 all of dQ over its own 64 keys (two parts, both reduced)
+  static constexpr bool DQ_OWN_KEYS = NP == 1;
+  // a dQ tile: BQ rows x the two warpgroups' panels in fp32, as boxes of
+  // 32 columns (128 bytes a row), two a panel
+  static constexpr int DQ_ELEMS = BQ * 2 * kPanel;
   // K, V, the Q and dO rings, two dS tiles, two dQ tiles, lse and delta a
-  // stage, the barriers (full K/V, full and empty a stage and a dQ
-  // tile), 1024 bytes of alignment
+  // stage, the barriers (full K/V; full and empty a stage; full and empty
+  // a dS and a dQ tile), 1024 bytes of alignment
   static constexpr int SMEM = 1024 + 2 * KV_BYTES + 2 * ST * Q_BYTES +
                               2 * DS_ELEMS * 2 + 2 * DQ_ELEMS * 4 +
-                              2 * ST * BQ * 4 + (5 + 2 * ST) * 8;
-  // the producer warpgroup keeps a few registers for its loads; the
-  // consumers hold dK and dV (D/2 each), S^T and dP^T (32 each)
-  static constexpr uint32_t PRODUCER_REGS = 40;
-  static constexpr uint32_t CONSUMER_REGS = 232;
+                              2 * ST * BQ * 4 + (9 + 2 * ST) * 8;
+  // the loading warpgroup keeps few registers; the consumers hold dK and
+  // dV (D/2 each) beside S^T and dP^T (32 each), or P^T and dS^T (16 each)
+  // and a dQ panel (32)
+  static constexpr uint32_t LOADER_REGS = 24;
+  static constexpr uint32_t CONSUMER_REGS = 240;
+  // setmaxnreg moves registers within the CTA's launch allocation (168 a
+  // thread at 384 threads): a consumer's .inc past it would wait forever
+  static_assert(LOADER_REGS + 2 * CONSUMER_REGS <= 3 * 168,
+                "the warpgroups' register budgets exceed the launch's");
 };
 
 // 2^x on the special-function unit, subnormal results flushed to zero.
@@ -485,15 +520,16 @@ __device__ __forceinline__ void issue_rs(float (&d)[D / 2],
                       sm90::desc_sw128(b + kk * 16 * kPanel, 64 * 128, 1024));
 }
 
-// dQ (64 x N) = dS (64 x 128 keys, K-major, 2 key panels) K (128 keys x N
-// columns of one panel, MN-major); the product is issued, not committed.
-template <int N>
-__device__ __forceinline__ void issue_dq(float (&d)[N / 2], const bf16* ds,
+// dQ (64 x 64) = dS (64 queries x 16 KS keys, K-major, in key panels of
+// 64) K (those keys x the 64 columns of one panel, MN-major); issued, not
+// committed.
+template <int KS>
+__device__ __forceinline__ void issue_dq(float (&d)[32], const bf16* ds,
                                          const bf16* kp) {
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     const int p = ks / 4, c = (ks % 4) * 16;
-    sm90::wgmma_ss_tb<N>(
+    sm90::wgmma_ss_tb<64>(
         d, sm90::desc_sw128(ds + p * 64 * kPanel + c, 16, 1024),
         sm90::desc_sw128(kp + ks * 16 * kPanel, 128 * 128, 1024), ks > 0);
   }
@@ -513,7 +549,8 @@ __device__ __forceinline__ void pack_a(const float (&x)[32],
 
 // A warpgroup's 64 x 64 dQ panel (columns col0 ..) from registers into the
 // shared fp32 dQ tile `sdq` (boxes of 64 rows x 32 columns, 128-byte
-// swizzled as TMA reads them), then ordered before the dQ warp's reads.
+// swizzled as TMA reads them, so a warp's 8-byte writes take two
+// wavefronts), then ordered before the reduction's reads.
 __device__ __forceinline__ void store_dq(const float (&d)[32], float* sdq,
                                          int wr, int t, int col0) {
   uint8_t* tile = reinterpret_cast<uint8_t*>(sdq);
@@ -553,8 +590,8 @@ __global__ void __launch_bounds__(BwdConfig<D>::THREADS, 1)
       smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
   bf16* sK = reinterpret_cast<bf16*>(base);
   bf16* sV = sK + C::KV_ELEMS;
-  bf16* sQ = sV + C::KV_ELEMS;      // ST stages
-  bf16* sO = sQ + ST * C::Q_ELEMS;  // dO, ST stages
+  bf16* sQ = sV + C::KV_ELEMS;       // ST stages
+  bf16* sO = sQ + ST * C::Q_ELEMS;   // dO, ST stages
   bf16* sDS = sO + ST * C::Q_ELEMS;  // 2 dS tiles
   float* sDQ = reinterpret_cast<float*>(sDS + 2 * C::DS_ELEMS);  // 2 tiles
   float* sL = sDQ + 2 * C::DQ_ELEMS;  // ST x BQ
@@ -562,10 +599,15 @@ __global__ void __launch_bounds__(BwdConfig<D>::THREADS, 1)
   uint64_t* full_kv = reinterpret_cast<uint64_t*>(sDl + ST * BQ);
   uint64_t* full = full_kv + 1;
   uint64_t* empty = full + ST;
-  uint64_t* dq_full = empty + ST;    // a dQ tile's writes are in
-  uint64_t* dq_empty = dq_full + 2;  // a dQ tile's reads are done
+  uint64_t* ds_full = empty + ST;    // both halves of a dS tile are in
+  uint64_t* ds_empty = ds_full + 2;  // the dQ products have read a dS tile
+  uint64_t* dq_full = ds_empty + 2;  // both panels of a dQ tile are in
+  uint64_t* dq_empty = dq_full + 2;  // a dQ tile's reductions have read it
 
-  const int kt = blockIdx.x / (Hkv * B), rest = blockIdx.x % (Hkv * B);
+  // key tiles in launch order: the first (under causal masking the
+  // longest: key tile 0 is seen from every query tile) first
+  const int kt = blockIdx.x / (Hkv * B);
+  const int rest = blockIdx.x % (Hkv * B);
   const int hk = rest % Hkv, b = rest / Hkv, k0 = kt * BK;
   const int group = Hq / Hkv;
   const int kvl = kv_len != nullptr ? kv_len[b] : Skv;
@@ -574,52 +616,57 @@ __global__ void __launch_bounds__(BwdConfig<D>::THREADS, 1)
   const int n_qt = (Sq + BQ - 1) / BQ;
   const int qt_lo = k0 < kv_lim ? first_q_tile<BQ>(k0, q_offset, causal)
                                 : n_qt;
-  const bool visits = qt_lo < n_qt;
+  // visit v is query tile qt_lo + v % per_head of the group's head
+  // v / per_head
+  const int per_head = n_qt - qt_lo;
+  const int n_vis = group * per_head;
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(full_kv, 1);
     for (int s = 0; s < ST; ++s) {
-      sm90::mbar_init(&full[s], 32);   // the producer warp's lanes
-      sm90::mbar_init(&empty[s], 8);   // one arrival a consumer warp
+      sm90::mbar_init(&full[s], 32);  // the loading warp, and TMA's bytes
+      sm90::mbar_init(&empty[s], 8);  // one arrival a warp
     }
     for (int i = 0; i < 2; ++i) {
-      sm90::mbar_init(&dq_full[i], 4 * C::NP);  // the warps with a panel
-      sm90::mbar_init(&dq_empty[i], 1);         // the dQ warp
+      sm90::mbar_init(&ds_full[i], 8);
+      sm90::mbar_init(&ds_empty[i], 8);
+      sm90::mbar_init(&dq_full[i], 8);
+      sm90::mbar_init(&dq_empty[i], 1);  // the reductions' issuer
     }
     sm90::mbar_init_fence();
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
-  if (wg == 2 && threadIdx.x >= 288) {
-    // ---- the dQ warp (one thread of warp 1): each visit's dQ tile into
-    // the accumulator, a TMA reduction a box; tile it % 2 is handed back
-    // once visit it + 1's reductions are issued and its own are read ------
-    sm90::regs_dealloc<C::PRODUCER_REGS>();
-    if (threadIdx.x != 288 || !visits) return;
-    sm90::prefetch_tmap(&tm_dq);
-    int it = 0;
-    for (int hh = 0; hh < group; ++hh) {
-      for (int qt = qt_lo; qt < n_qt; ++qt, ++it) {
-        const int buf = it & 1;
-        sm90::mbar_wait(&dq_full[buf], (it >> 1) & 1);
-        for (int bx = 0; bx < C::DQ_BOXES; ++bx)
-          sm90::tma_reduce_add_4d(&tm_dq, sDQ + buf * C::DQ_ELEMS +
-                                              bx * BQ * 32,
-                                  bx * 32, hk * group + hh, qt * BQ, b);
-        sm90::tma_store_commit();
-        sm90::bulk_wait_read_1();  // visit it - 1's tile is read
-        if (it > 0) sm90::mbar_arrive(&dq_empty[buf ^ 1]);
-      }
-    }
-    sm90::bulk_wait_all();
-    return;
-  }
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int lane = tid % 32, t = lane % 4;
   if (wg == 2) {
-    // ---- producer: warp 0 of the warpgroup -------------------------------
-    sm90::regs_dealloc<C::PRODUCER_REGS>();
-    const int lane = threadIdx.x - 256;
-    if (lane >= 32 || !visits) return;
+    // ---- warpgroup 2: warp 0 loads, warp 1's lane 0 reduces dQ ----------
+    sm90::regs_dealloc<C::LOADER_REGS>();
+    if (n_vis == 0 || tid >= 64) return;
+    if (tid >= 32) {
+      // each visit's dQ tile into the accumulator, one TMA reduction a box
+      // (both warpgroups' panels; for D = 64 their two parts, into the
+      // same columns); tile (u - 1) % 2 is handed back once read
+      if (lane != 0) return;
+      sm90::prefetch_tmap(&tm_dq);
+      for (int u = 0; u < n_vis; ++u) {
+        const int h = hk * group + u / per_head;
+        const int q0 = (qt_lo + u % per_head) * BQ;
+        sm90::mbar_wait(&dq_full[u & 1], (u >> 1) & 1);
+        for (int bx = 0; bx < 4; ++bx)
+          sm90::tma_reduce_add_4d(
+              &tm_dq, sDQ + (u & 1) * C::DQ_ELEMS + bx * BQ * 32,
+              (C::DQ_OWN_KEYS ? bx % 2 : bx) * 32, h, q0, b);
+        sm90::tma_store_commit();
+        sm90::bulk_wait_read_1();
+        if (u > 0) sm90::mbar_arrive(&dq_empty[(u - 1) & 1]);
+      }
+      sm90::bulk_wait_all();
+      return;
+    }
+    // K and V once (TMA), then each visit's Q and dO (TMA, lane 0) and its
+    // lse (in log2 units) and delta (every lane) into stage v % ST, once
+    // both warpgroups are done with visit v - ST
     if (lane == 0) {
       sm90::prefetch_tmap(&tm_q);
       sm90::prefetch_tmap(&tm_do);
@@ -631,33 +678,30 @@ __global__ void __launch_bounds__(BwdConfig<D>::THREADS, 1)
                           hk, k0, b);
       }
     }
-    int it = 0;
-    for (int hh = 0; hh < group; ++hh) {
-      const int h = hk * group + hh;
+    for (int v = 0; v < n_vis; ++v) {
+      const int s = v % ST;
+      const int h = hk * group + v / per_head;
+      const int q0 = (qt_lo + v % per_head) * BQ;
+      if (v >= ST) sm90::mbar_wait(&empty[s], ((v / ST) & 1) ^ 1);
       const float* lp = lse + (static_cast<size_t>(b) * Hq + h) * Sq;
       const float* dlp = delta + (static_cast<size_t>(b) * Hq + h) * Sq;
-      for (int qt = qt_lo; qt < n_qt; ++qt, ++it) {
-        const int s = it % ST, q0 = qt * BQ;
-        // stage s last held visit it - ST: wait until it is handed back
-        if (lane == 0 && it >= ST)
-          sm90::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
-        __syncwarp();
-        for (int r = lane; r < BQ; r += 32) {
-          const int qr = q0 + r;
-          sL[s * BQ + r] = qr < Sq ? lp[qr] * kLog2e : INFINITY;
-          sDl[s * BQ + r] = qr < Sq ? dlp[qr] : 0.f;
+      for (int r = lane; r < BQ; r += 32) {
+        // rows past Sq: lse +inf and delta 0 (only masked visits reach
+        // them)
+        const int qr = q0 + r;
+        sL[s * BQ + r] = qr < Sq ? lp[qr] * kLog2e : INFINITY;
+        sDl[s * BQ + r] = qr < Sq ? dlp[qr] : 0.f;
+      }
+      if (lane == 0) {
+        sm90::mbar_expect_tx(&full[s], 2 * C::Q_BYTES);
+        for (int p = 0; p < C::NP; ++p) {
+          sm90::tma_load_4d(sQ + s * C::Q_ELEMS + p * BQ * kPanel, &tm_q,
+                            &full[s], p * kPanel, h, q0, b);
+          sm90::tma_load_4d(sO + s * C::Q_ELEMS + p * BQ * kPanel, &tm_do,
+                            &full[s], p * kPanel, h, q0, b);
         }
-        if (lane == 0) {
-          sm90::mbar_expect_tx(&full[s], 2 * C::Q_BYTES);
-          for (int p = 0; p < C::NP; ++p) {
-            sm90::tma_load_4d(sQ + s * C::Q_ELEMS + p * BQ * kPanel, &tm_q,
-                              &full[s], p * kPanel, h, q0, b);
-            sm90::tma_load_4d(sO + s * C::Q_ELEMS + p * BQ * kPanel, &tm_do,
-                              &full[s], p * kPanel, h, q0, b);
-          }
-        } else {
-          sm90::mbar_arrive(&full[s]);
-        }
+      } else {
+        sm90::mbar_arrive(&full[s]);
       }
     }
     return;
@@ -665,52 +709,73 @@ __global__ void __launch_bounds__(BwdConfig<D>::THREADS, 1)
 
   // ---- consumer warpgroup wg: keys k0 + 64 wg .. + 63 ---------------------
   sm90::regs_alloc<C::CONSUMER_REGS>();
-  const int tid = threadIdx.x % 128, lane = tid % 32;
-  const int t = lane % 4;
   const int wr = (tid / 32) * 16 + lane / 4;  // rows wr, wr + 8 of the 64
-  const bf16* sKw = sK + wg * 64 * kPanel;
-  const bf16* sVw = sV + wg * 64 * kPanel;
-  const size_t kv_row = static_cast<size_t>(Hkv) * D;
-  // this thread's two keys, and the first query position each is seen from
-  int key[2], q_min[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    key[r] = k0 + wg * 64 + wr + 8 * r;
-    // a key at or past kv_lim is seen from no row
-    q_min[r] = key[r] >= kv_lim ? INT_MAX
-                                : (causal ? key[r] - q_offset : INT_MIN);
-  }
+  // this thread's keys: k0 + 64 wg + wr and 8 after it
+  const int key0 = k0 + wg * 64 + wr;
   float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
   for (int j = 0; j < D / 2; ++j) dk_acc[j] = dv_acc[j] = 0.f;
-  // warpgroup wg takes dQ's 64-column panel wg (the last one of D = 112
-  // reads K's zero-filled columns 112-127; TMA drops them from the sum),
-  // into tile v % 2 once the dQ warp has read visit v - 2's. (Deferring
-  // the product under the next visit's S and dP would hold 32 more
-  // registers over them, past the consumers' budget.)
-  const bool has_dq = wg < C::NP;
-  const bf16* sKp = sK + wg * BK * kPanel;
 
-  // A visit needs the mask only when its tile crosses Sq, kv_lim or (if
-  // causal) the diagonal; the choice is made before any product is issued,
-  // as a branch while one runs would make ptxas wait for it.
-  const int key_hi = k0 + wg * 64 + 63;
-  int it = 0;
-  auto visit = [&](int q0, auto masked) {
-    const int s = it % ST;
+  if (wg == 1) sm90::named_bar_arrive(3, 256);
+  if (n_vis > 0) sm90::mbar_wait(full_kv, 0);
+
+  // No branch lies between a product's issue and its wait (ptxas would
+  // serialize every wgmma otherwise), and both warpgroups run the same
+  // code. They issue their products in turns (named barriers 3 and 4),
+  // warpgroup 0 first, two turns a visit each (S^T and dP^T; dQ, dV and
+  // dK), so one's exps, dS and stores run while the other's products hold
+  // the tensor cores. Warpgroup 1 opens once; warpgroup 0 takes the last
+  // hand-over.
+  auto turn_begin = [&] { sm90::named_bar_sync(3 + wg, 256); };
+  auto turn_end = [&] { sm90::named_bar_arrive(4 - wg, 256); };
+  const bf16* sKw = sK + wg * 64 * kPanel;
+  const bf16* sVw = sV + wg * 64 * kPanel;
+  // warpgroup wg's dQ product: dS over all 128 keys times K's column
+  // panel wg (the last one of D = 112 reads K's zero-filled columns
+  // 112-127; TMA drops them from the sum), or for D = 64 its own half of
+  // dS times its own 64 keys of K
+  const int dq_a = C::DQ_OWN_KEYS ? wg * BQ * kPanel : 0;
+  const bf16* sKp =
+      sK + (C::DQ_OWN_KEYS ? wg * 64 * kPanel : wg * BK * kPanel);
+  constexpr int kDqSteps = C::DQ_OWN_KEYS ? 4 : 8;
+  // dQ of visit u (done) from registers into this warpgroup's panel of dQ
+  // tile u % 2, once visit u - 2's reductions have read the tile
+  auto put_dq = [&](const float (&dq)[32], int u) {
+    if (u >= 2) sm90::mbar_wait(&dq_empty[u & 1], ((u >> 1) - 1) & 1);
+    store_dq(dq, sDQ + (u & 1) * C::DQ_ELEMS, wr, t, 64 * wg);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&dq_full[u & 1]);
+  };
+
+  // Visit v: query tile q0 from ring stage v % ST. A visit needs the
+  // mask only when its tile crosses Sq, kv_lim or (if causal) the
+  // diagonal; the first visit has no dQ of a visit before it.
+  auto visit = [&](int v, int q0, auto masked, auto first) {
+    constexpr bool kDq = !decltype(first)::value;
+    const int s = v % ST, u = v - 1;
     const bf16* sQs = sQ + s * C::Q_ELEMS;
     const bf16* sOs = sO + s * C::Q_ELEMS;
-    sm90::mbar_wait(&full[s], (it / ST) & 1);
+    sm90::mbar_wait(&full[s], (v / ST) & 1);
     float sc[32], dp[32];  // S^T and dP^T, 64 keys x 64 queries
+    turn_begin();
     sm90::wgmma_fence();
     issue_nt<C::KS>(sc, sKw, BK * kPanel, sQs, BQ * kPanel);
     sm90::wgmma_commit();
     issue_nt<C::KS>(dp, sVw, BK * kPanel, sOs, BQ * kPanel);
     sm90::wgmma_commit();
+    turn_end();
     sm90::wgmma_wait<1>();
     sm90::fence_regs(sc);
-    // P^T = exp2(S^T scale log2 e - lse log2 e), 0 where masked: element
-    // 4j + 2r + e is key key[r], query q0 + 8j + 2t + e
+    // P^T = exp2(S^T scale log2 e - lse log2 e), 0 where masked:
+    // element 4j + 2r + e is key key0 + 8r, query q0 + 8j + 2t + e, and
+    // key k is seen from the query rows at or past q_min (none past
+    // kv_lim)
+    int q_min[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int k = key0 + 8 * r;
+      q_min[r] = k >= kv_lim ? INT_MAX : (causal ? k - q_offset : INT_MIN);
+    }
     const float* sLs = sL + s * BQ;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -744,14 +809,13 @@ __global__ void __launch_bounds__(BwdConfig<D>::THREADS, 1)
     uint32_t pa[4][4], da[4][4];
     pack_a(sc, pa);
     pack_a(dp, da);
-    sm90::wgmma_fence();
-    issue_rs<D>(dv_acc, pa, sOs);
-    issue_rs<D>(dk_acc, da, sQs);
-    sm90::wgmma_commit();
-    // dS as bf16 into this warpgroup's key panel of dS tile it % 2, row q,
-    // 16-byte chunk (key / 8) ^ (q % 8): a K-major A operand for dQ
+    // dS as bf16 into this warpgroup's key panel of dS tile v % 2, row q,
+    // 16-byte chunk (key / 8) ^ (q % 8): a K-major A operand for dQ, once
+    // visit v - 2's dQ products have read the tile. (Written while the
+    // products below run, the stores made nvcc's cicc crash.)
+    if (v >= 2) sm90::mbar_wait(&ds_empty[v & 1], ((v >> 1) - 1) & 1);
     uint8_t* sDSw =
-        reinterpret_cast<uint8_t*>(sDS + (it & 1) * C::DS_ELEMS) +
+        reinterpret_cast<uint8_t*>(sDS + (v & 1) * C::DS_ELEMS) +
         wg * BQ * 128;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -768,42 +832,72 @@ __global__ void __launch_bounds__(BwdConfig<D>::THREADS, 1)
         }
       }
     sm90::fence_async_shared();
-    sm90::named_bar_sync(1, 256);  // both warpgroups' halves of dS are in
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&ds_full[v & 1]);
+    // dQ of visit v - 1 (whose dS tile both warpgroups wrote in their
+    // visit before), dV and dK of this one
+    if (kDq) sm90::mbar_wait(&ds_full[u & 1], (u >> 1) & 1);
+    float dq[32];
+    turn_begin();
+    sm90::wgmma_fence();
+    if constexpr (kDq)
+      issue_dq<kDqSteps>(dq, sDS + (u & 1) * C::DS_ELEMS + dq_a, sKp);
+    issue_rs<D>(dv_acc, pa, sOs);
+    issue_rs<D>(dk_acc, da, sQs);
+    sm90::wgmma_commit();
+    turn_end();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(dv_acc);
     sm90::fence_regs(dk_acc);
+    if constexpr (kDq) sm90::fence_regs(dq);
     __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&empty[s]);  // Q and dO are done
-    if (has_dq) {
-      float dq[32];
-      sm90::wgmma_fence();
-      issue_dq<64>(dq, sDS + (it & 1) * C::DS_ELEMS, sKp);
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(dq);
-      if (it > 1) sm90::mbar_wait(&dq_empty[it & 1], ((it >> 1) - 1) & 1);
-      store_dq(dq, sDQ + (it & 1) * C::DQ_ELEMS, wr, t, 64 * wg);
-      __syncwarp();
-      if (lane == 0) sm90::mbar_arrive(&dq_full[it & 1]);
+    if (lane == 0) {
+      sm90::mbar_arrive(&empty[s]);  // Q, dO, lse, delta done
+      if (kDq) sm90::mbar_arrive(&ds_empty[u & 1]);
     }
+    if constexpr (kDq) put_dq(dq, u);
   };
 
-  if (visits) sm90::mbar_wait(full_kv, 0);
-  for (int hh = 0; hh < group; ++hh)
-    for (int qt = qt_lo; qt < n_qt; ++qt, ++it) {
+  const int key_hi = k0 + wg * 64 + 63;
+  for (int hh = 0, v = 0; hh < group; ++hh)
+    for (int qt = qt_lo; qt < n_qt; ++qt, ++v) {
       const int q0 = qt * BQ;
-      if (key_hi >= kv_lim || q0 + BQ > Sq ||
-          (causal && key_hi > q_offset + q0))
-        visit(q0, Bool<true>{});
-      else
-        visit(q0, Bool<false>{});
+      const bool masked = key_hi >= kv_lim || q0 + BQ > Sq ||
+                          (causal && key_hi > q_offset + q0);
+      if (v == 0) {
+        if (masked)
+          visit(v, q0, Bool<true>{}, Bool<true>{});
+        else
+          visit(v, q0, Bool<false>{}, Bool<true>{});
+      } else if (masked) {
+        visit(v, q0, Bool<true>{}, Bool<false>{});
+      } else {
+        visit(v, q0, Bool<false>{}, Bool<false>{});
+      }
     }
+  if (n_vis > 0) {
+    // the last visit's dQ
+    const int u = n_vis - 1;
+    sm90::mbar_wait(&ds_full[u & 1], (u >> 1) & 1);
+    float dq[32];
+    turn_begin();
+    sm90::wgmma_fence();
+    issue_dq<kDqSteps>(dq, sDS + (u & 1) * C::DS_ELEMS + dq_a, sKp);
+    sm90::wgmma_commit();
+    turn_end();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dq);
+    put_dq(dq, u);
+  }
+  if (wg == 0) sm90::named_bar_sync(3, 256);
 
   // dK and dV of this thread's two keys
+  const size_t kv_row = static_cast<size_t>(Hkv) * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (key[r] >= Skv) continue;
-    const size_t at = (static_cast<size_t>(b) * Skv + key[r]) * kv_row +
+    const int key = key0 + 8 * r;
+    if (key >= Skv) continue;
+    const size_t at = (static_cast<size_t>(b) * Skv + key) * kv_row +
                       hk * D + 2 * t;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {

@@ -58,14 +58,25 @@ def tile_rows(b: int, sq: int, hq: int):
 def bwd_tiles(b: int, sq: int, skv: int, hq: int, hkv: int, *,
               causal: bool = True, q_offset: int = 0, kv_len=None,
               bf16: bool = True):
-    """The backward kernel's visits: for each CTA, (batch, KV head, first
-    key, keys) and the (query head, first q row, rows) tiles it walks, in
-    its order. A CTA holds 128 keys in bf16 (64 in fp32) and walks 64-row
-    query tiles of every query head of its group, from the first tile that
-    can see its first key under causal masking (the tiles wholly above the
-    diagonal are skipped). A CTA of a sequence that sees no key
-    (``kv_len[b] == 0``) or whose keys all lie at or past ``kv_len[b]``
-    visits nothing."""
+    """The backward kernel's visits: for each CTA in launch order, (batch,
+    KV head, first key, keys) and the (query head, first q row, rows) tiles
+    it walks, in its order. A CTA holds 128 keys in bf16 (64 in fp32) and
+    walks 64-row query tiles of every query head of its group, head by
+    head, from the first tile that can see its first key under causal
+    masking (the tiles wholly above the diagonal are skipped). CTAs go key
+    tile by key tile, the first first: under causal masking the longest
+    (key tile 0 is seen from every query tile), so no CTA has more visits
+    than one launched before it when no ``kv_len`` cuts the keys. A CTA of
+    a sequence that sees no key (``kv_len[b] == 0``) or whose keys all lie
+    at or past ``kv_len[b]`` visits nothing.
+
+    In bf16 the CTA's two consumer warpgroups take 64 of its keys each
+    (their dK and dV; the second fewer or none where Skv ends inside the
+    CTA) and both walk all its visits. A visit's dQ is taken during the
+    next visit, once both halves of its dS are in: for D = 112 or 128 each
+    warpgroup takes one 64-column panel of it over all 128 keys, for D =
+    64 all of it over its own 64 keys (both parts are added to the
+    accumulator)."""
     bk, bq = (128 if bf16 else 64), 64
     g = hq // hkv
     n_qt = -(-sq // bq)

@@ -10,8 +10,11 @@ forward and gradients, against autograd of their plain versions on the
 same CUDA tensors, each backward kernel launched once a call: B2 over the
 grid of ``tests/test_torch_cuda_flash.py`` (causal and not, query groups
 1-8, head dims 64, 112 and 128, key counts 1, 63, 64, 65, 1601 and 4096,
-zamba2-7b's 32 heads of 112 at 4096), a kv_len case with a sequence that
-sees no key, and dK and dV equal bit for bit over two runs; B3 over the
+zamba2-7b's 32 heads of 112 at 4096; causal with a q_offset at 129 and 384
+keys, group 8 at D=64, D=112 at 70 rows), a kv_len case with a sequence
+that sees no key, kv_len ending inside the second warpgroup of a CTA
+(each warpgroup of the bf16 kernel takes 64 of its 128 keys), and dK and
+dV equal bit for bit over two runs; B3 over the
 grid of its CPU sweep, a weight of the other type, and the training
 shape; B4's gradients equal the plain version's. B1 has no backward and
 must refuse an input that requires grad. A reduced fp32 model's every
@@ -96,6 +99,10 @@ FLASH_GRID = [
     (1, 512, 4096, 8, 2, 128, False, DTYPES),      # 4096 keys
     (1, 4096, 4096, 8, 2, 128, True, [torch.bfloat16]),   # training length
     (2, 4096, 4096, 32, 32, 112, True, [torch.bfloat16]),  # zamba2 training
+    (1, 100, 129, 8, 2, 128, True, DTYPES),        # 129 keys, q_offset 29
+    (2, 200, 384, 8, 4, 64, True, DTYPES),         # 3 key tiles, q_offset 184
+    (1, 200, 200, 8, 1, 64, True, DTYPES),         # group 8 at D=64, causal
+    (1, 70, 70, 4, 2, 112, True, [torch.bfloat16]),  # D=112, short
 ]
 
 
@@ -140,6 +147,33 @@ def test_flash_function_kv_len_and_masked_rows(card, dtype):
     for g, w in zip(grads, wgrads):
         _close(g, w, dtype)
     assert not bool(grads[0][0].float().any())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_kv_len_inside_a_warpgroup(card, causal):
+    """bf16: kv_len ends inside a CTA's second warpgroup (100: keys 64-127
+    of the first CTA; 230: keys 192-255 of the second), which masks part
+    of its keys while the first warpgroup sees all of its own."""
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=card).manual_seed(4)
+    q = _randn(gen, card, dtype, 2, 96, 8, 128)
+    k, v = (_randn(gen, card, dtype, 2, 256, 2, 128) for _ in range(2))
+    dout = _randn(gen, card, dtype, 2, 96, 8, 128)
+    kl = torch.tensor([100, 230], dtype=torch.int32, device=card)
+    q_offset = 160 if causal else 0
+    before = flash_attention_backward.launches
+    (out, grads), (want, wgrads) = _grads_against_plain(
+        lambda *a: flash_attention(*a, causal=causal, q_offset=q_offset,
+                                   kv_len=kl),
+        lambda *a: flash_attention_ref(*a, causal=causal, q_offset=q_offset,
+                                       kv_len=kl), (q, k, v), dout)
+    assert flash_attention_backward.launches == before + 1
+    _close(out, want, dtype)
+    for g, w in zip(grads, wgrads):
+        _close(g, w, dtype)
+    # keys at or past kv_len get no gradient
+    assert not bool(grads[1][0, 100:].float().any())
+    assert not bool(grads[2][1, 230:].float().any())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -12,7 +12,9 @@ it walks its tiles, held against the reference.
   outside a visited tile is allowed, and no tile visited is wholly masked,
   over causal masking with a q_offset, kv_len with a dead sequence, GQA
   groups 1, 4 and 8, and both the bf16 (128 keys a CTA) and fp32 (64)
-  tilings.
+  tilings; in bf16 the CTA's two warpgroups (64 keys each, both walking
+  the CTA's visits) reach every allowed pair exactly once too; and with no
+  kv_len the CTAs launch longest first.
 
 Inputs come from numpy seeds."""
 import numpy as np
@@ -148,3 +150,38 @@ def test_bwd_tiles_visit_every_allowed_pair_once(case, bf16):
     want = np.broadcast_to(allowed[:, None], count.shape)
     assert (count <= 1).all()
     np.testing.assert_array_equal(count.astype(bool) & want, want)
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_bwd_tiles_warpgroups_split_each_cta(case):
+    """bf16: a CTA's two warpgroups take 64 of its keys each (keys k0 ..
+    k0 + 63 and k0 + 64 .., the second fewer or none where Skv ends) and
+    both walk all its visits; every allowed (row, key) pair is reached by
+    exactly one (warpgroup, visit)."""
+    b, sq, skv, hq, hkv, causal, q_offset, kv_len = case
+    allowed = _mask(b, sq, skv, causal, q_offset, kv_len)
+    count = np.zeros((b, hq, sq, skv), np.int32)
+    for bb, hk, k0, keys, visits in bwd_tiles(
+            b, sq, skv, hq, hkv, causal=causal, q_offset=q_offset,
+            kv_len=kv_len):
+        halves = [(w0, max(0, min(64, k0 + keys - w0)))
+                  for w0 in (k0, k0 + 64)]
+        assert sum(n for _, n in halves) == keys
+        for w0, n in halves:
+            for h, q0, rows in visits:
+                count[bb, h, q0:q0 + rows, w0:w0 + n] += 1
+    want = np.broadcast_to(allowed[:, None], count.shape)
+    assert (count <= 1).all()
+    np.testing.assert_array_equal(count.astype(bool) & want, want)
+
+
+@pytest.mark.parametrize("case", [c for c in TILE_CASES if c[7] is None])
+@pytest.mark.parametrize("bf16", [True, False])
+def test_bwd_tiles_launch_longest_first(case, bf16):
+    """With no kv_len no CTA has more visits than one launched before it:
+    key tile 0, seen from every query tile under causal masking, first."""
+    b, sq, skv, hq, hkv, causal, q_offset, _ = case
+    counts = [len(c[4]) for c in bwd_tiles(b, sq, skv, hq, hkv,
+                                           causal=causal, q_offset=q_offset,
+                                           bf16=bf16)]
+    assert counts == sorted(counts, reverse=True) and counts[0] > 0
