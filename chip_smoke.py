@@ -7,9 +7,10 @@
    for fp32 matmuls and convolutions.
 2. Builds the port's CUDA kernels from ``src/repro_torch/kernels/**/csrc``
    with nvcc for sm_90a, and prints the build time and ptxas's register and
-   spill report, with a ``[build] B1 ptxas`` line of B1's instantiations
-   and a ``[build] B2 backward ptxas`` line of the backward's bf16 main
-   pass; a spill in any of them raises.
+   spill report, with a ``[build] B1 ptxas`` line of B1's instantiations,
+   a ``[build] B2 backward ptxas`` line of the backward's bf16 main
+   pass and a ``[build] B2 fp32 ptxas`` line of the fp32 forward; a spill
+   in any of them raises.
 3. Kernel phases: each kernel (B1 paged decode, B2 flash attention, B3
    RMSNorm) runs through its wrapper on the card at the shapes of the
    paths below (llama2-7b's, then mamba2-1.3b's and zamba2-7b's, then
@@ -30,9 +31,14 @@
    the host-loop times, so a launch-bound case shows as one. The bound is
    the larger of the bytes it must move over 3.35 TB/s and its operations
    over the peak rate of their type (989 TFLOP/s bf16 tensor core, 67
-   TFLOP/s fp32), the H100 SXM datasheet figures. B2 runs every prefill
+   TFLOP/s fp32; B2's fp32 route three tf32 products a product at 495
+   TFLOP/s, its bound as fp32 FMAs on a ``[flash fp32 bound]`` line), the
+   H100 SXM datasheet figures. B2 runs every prefill
    bucket (64-1024), GQA 32/8, D = 64, 112 (B=2) and 128, a ragged Sq
-   and a q_offset/kv_len cut mid-tile in bf16 and fp32. B1 and B2 are
+   and a q_offset/kv_len cut mid-tile in bf16 and fp32; last, B2's fp32
+   route (split-tf32 tensor-core products) at the chunked serving phase's
+   shapes: (Sq, Skv, q_offset) = (256, 1024, 768), (256, 256, 0), the
+   (64, 576, 512) tail, and kv_len cut inside the chunk. B1 and B2 are
    also held against their plain versions on rows that see no key (the
    mean of V). B1 is timed cold:
    each call reads the next of enough clones of the pools that a cycle
@@ -64,6 +70,19 @@
    for decode and hands it to both workers; the mean decode iteration is
    printed, and on a line of its own the constant 48.7 ms, the mean of an
    earlier run (run F) that promoted the weights on every step.
+   Then the chunked serving phase (``chunked_serving_phase``): the main
+   path's cluster freed (its KV pools with it), a cluster of the same
+   configuration on the same weights serves the same trace with
+   ``EngineConfig(prefill_chunk=256)``: every prompt over 256 tokens is
+   prefilled Sarathi-style in chunks, in fp32, through B2's fp32 route
+   with a runtime q_offset and kv_len. Its two workers share the main
+   path's fp32 copy of the weights (a second copy would not fit on the
+   card). Gates as the main path's, and B2's fp32 launches must be one per
+   chunk per layer of every prefill the engines ran (896 for the trace's
+   28 chunks and 32 layers; a differing count is logged with its cause);
+   logged as the main path, with B2's launches by route, then the device
+   time by kernel of one 960-token chunked prefill split into the fp32
+   GEMMs, B2's fp32 route, B3 and the rest.
 6. Breakdown: one more engine on the same weights (and the same fp32
    copy); prefill time at each bucket (cold, then warm) and a decode step
    at batch 8 x 512-token contexts, each on the host clock, with device
@@ -248,7 +267,9 @@
    ``python -m repro_torch.launch.dryrun`` of granite-3-8b's decode_32k
    and train_4k cells on 256 fake ranks: per-device peak GB, dot FLOPs,
    collective bytes by kind, trace seconds (counts from shapes).
-23. Prints ``{"kernels": [...]}``, then, last,
+23. Prints ``{"kernels": [...]}`` (B2's fp32 route as a row of its own,
+   ``flash_attention_fp32``, with the chunked serving phase's launches;
+   both B2 rows give their path's launches by route), then, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -278,8 +299,11 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM datasheet
 # iteration and the breakdown's decode-step wall, NVIDIA H100 80GB HBM3 at
 # 700 W
 RUN_F_MS = {"main_mean_decode": 48.7, "breakdown_decode_wall": 49.8}
-# fp64: outside the tensor cores, where the simulation core computes
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "fp64": 34e12}
+# fp64: outside the tensor cores, where the simulation core computes;
+# tf32: dense tensor cores, where B2's fp32 route takes each fp32 product
+# as three tf32 products
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "fp64": 34e12,
+              "tf32": 495e12}
 TOL = {"fp32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
 
 REPLACES = {
@@ -351,6 +375,9 @@ L2_BYTES = 50 * 2 ** 20                    # H100 L2 cache
 B1_CASES = ((1, 32, 32, "fp32"), (8, 32, 32, "fp32"), (8, 32, 8, "fp32"),
             (8, 32, 32, "bf16"))
 MAIN_PATH_LENGTHS = (960, 544, 160, 1, 1, 1, 1, 1)
+# Sarathi-style chunked prefill of the chunked serving phase: at most
+# this many prompt tokens an iteration (llama2-7b's prompts of 64-960)
+PREFILL_CHUNK = 256
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)     # SSD final state, as the
                                            # reference's test_ssd_sweep
 # both tanh gates of every VLM cross layer: zero at init, where a cross
@@ -824,8 +851,15 @@ def kernel_phases(torch, F, timer):
             case = f"B={b} Sq={sq} Skv={skv} H={hq}/{hkv} D={hd}" + (
                 f" q_offset={q_offset} kv_len={kv_len}" if q_offset
                 else "") + ("" if causal else " non-causal")
+            # the fp32 route's work is three tf32 products a product; its
+            # bound as fp32 FMAs is logged beside it
+            ops = {"tf32": 3 * flops} if kind == "fp32" else {kind: flops}
+            if kind == "fp32":
+                log(f"[flash fp32 bound] {case}: three tf32 products "
+                    f"{bound(nbytes, ops)[0]:.4f} ms, as fp32 FMAs "
+                    f"{bound(nbytes, {'fp32': flops})[0]:.4f} ms")
             record(cases, "flash_attention", case, kind, err, timer(kern),
-                   timer(plain), l_ms, nbytes, {kind: flops},
+                   timer(plain), l_ms, nbytes, ops,
                    dev=(device_ms(torch, kern,
                                   stem=PORT_KERNELS["flash_attention"]),
                         l_dev))
@@ -909,6 +943,15 @@ def kernel_phases(torch, F, timer):
     flash_cases(((2, 1024, 1601, 64, 8, 128, "bf16", 0, None, False),
                  (2, 1024, 1024, 64, 8, 128, "bf16", 0, None),
                  (1, 256, 1601, 64, 8, 128, "fp32", 0, None, False)))
+
+    # B2's fp32 route at the chunked serving phase's shapes (llama2-7b,
+    # prefill_chunk 256: a 960-token prompt's last chunk, its first, a
+    # 64-row tail, and kv_len cut 188 keys into the chunk), after all of
+    # the above so its draws stay
+    flash_cases(((1, 256, 1024, 32, 32, 128, "fp32", 768, 1024),
+                 (1, 256, 256, 32, 32, 128, "fp32", 0, 256),
+                 (1, 64, 576, 32, 32, 128, "fp32", 512, 576),
+                 (1, 256, 768, 32, 32, 128, "fp32", 512, 700)))
     return cases
 
 
@@ -1235,11 +1278,99 @@ def _numel(tree) -> int:
                for v in tree.values())
 
 
-def main_path(torch, counters):
+def _zero(counters) -> None:
+    """Set every launch count of ``counters`` to 0, B2's counts by route
+    too."""
+    for c in counters:
+        c.launches = 0
+        for route in ("launches_fp32", "launches_bf16"):
+            if hasattr(c, route):
+                setattr(c, route, 0)
+
+
+def _serve_trace(torch, cluster, arch, counters, tag):
+    """Serve the main path's trace (``default_rng(0)``: 12 Poisson arrivals
+    at 8/s, prompts 64-960 with the first at 960, 16-32 output tokens)
+    through ``cluster`` until drained, the launch counts zeroed just before
+    and read just after. Gates: every request finishes with valid tokens,
+    the TraceBuffer fits Eq. 2 and Eq. 3. Returns the logged result, the
+    requests, the launches by counter and B2's by route."""
     import numpy as np
 
-    from repro_torch.configs import get_arch
     from repro_torch.core.request import ReqState, Request
+    from repro_torch.kernels.flash_attention import flash_attention
+    slo = cluster.slo
+    rng = np.random.default_rng(0)
+    n_req, rate = 12, 8.0          # req/s: enough load to spill past one
+                                   # worker's Algorithm 1 budget
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, n_req))
+    l_ins = rng.integers(64, 961, n_req)
+    l_ins[0] = 960                              # one 1024-token bucket
+    l_reals = rng.integers(16, 33, n_req)
+    reqs = []
+    _zero(counters)
+    start = time.perf_counter()
+    # a request is admitted at the first heartbeat after its arrival, one
+    # per heartbeat, so each gets a prefill iteration of its own and every
+    # worker that serves >= 4 requests can refit Eq. 2; TTFT counts from
+    # the arrival, so the wait for the heartbeat is charged
+    while len(reqs) < n_req:
+        i = len(reqs)
+        if time.perf_counter() - start >= arrivals[i]:
+            r = Request(l_in=int(l_ins[i]), l_pred=0, l_real=int(l_reals[i]),
+                        arrival=start + float(arrivals[i]))
+            r.tokens = [int(x) for x in rng.integers(2, arch.vocab, r.l_in)]
+            reqs.append(r)
+            cluster.submit(r)
+        cluster.heartbeat()
+    cluster.run_until_drained(max_beats=2000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = {c.__name__: c.launches for c in counters}
+    by_route = {"fp32": flash_attention.launches_fp32,
+                "bf16": flash_attention.launches_bf16}
+
+    done = [r for r in reqs if r.state == ReqState.FINISHED]
+    if len(done) != n_req:
+        raise AssertionError(f"{tag}: only {len(done)}/{n_req} requests "
+                             "finished")
+    for r in reqs:
+        if len(r.tokens) != r.l_in + r.l_out or r.l_out != r.l_real or \
+                not all(0 <= t < arch.vocab for t in r.tokens):
+            raise AssertionError(f"{tag}: request {r.id}: bad tokens")
+    pre_t, dec_t = [], []
+    for w in cluster.workers.values():
+        pre_t += w.engine.traces.prefill_times
+        dec_t += w.engine.traces.decode_times
+    perf = cluster.perf
+    if "prefill" not in perf.max_rel_err or "decode" not in perf.max_rel_err:
+        raise AssertionError(f"{tag}: TraceBuffer fit incomplete: "
+                             f"{perf.max_rel_err}")
+    out_tokens = sum(r.l_out for r in reqs)
+    result = {
+        "finished": len(done), "submitted": n_req,
+        "attainment": cluster.attainment(), "slo": [slo.ttft, slo.atgt],
+        "workers": len(cluster.workers),
+        "placed_on": [r.worker for r in reqs],
+        "wall_s": wall, "output_tokens": out_tokens,
+        "output_tokens_per_s": out_tokens / wall,
+        "prefill_iters": len(pre_t), "decode_iters": len(dec_t),
+        "mean_prefill_ms": 1e3 * float(np.mean(pre_t)),
+        "mean_decode_ms": 1e3 * float(np.mean(dec_t)),
+        "ttft_s": [r.ttft() for r in reqs], "atgt_s": [r.atgt() for r in reqs],
+        "eq2": {"k1": perf.prefill.k1, "c1": perf.prefill.c1},
+        "eq3": {"k2": perf.decode.k2, "c2": perf.decode.c2,
+                "c3": perf.decode.c3},
+        "max_rel_err": perf.max_rel_err, "launches": launches,
+        "flash_attention_by_route": by_route,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log(f"[{tag}] " + json.dumps(result))
+    return result, reqs, launches, by_route
+
+
+def main_path(torch, counters):
+    from repro_torch.configs import get_arch
     from repro_torch.core.slo import SLO
     from repro_torch.models.model import LM
     from repro_torch.serving.cluster import ClusterConfig, ServingCluster
@@ -1270,69 +1401,8 @@ def main_path(torch, counters):
     log(f"[main] 2 workers, pool {EngineConfig().n_pages} pages x "
         f"{EngineConfig().page_size} tokens fp32 each; memory allocated "
         f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
-    rng = np.random.default_rng(0)
-    n_req, rate = 12, 8.0          # req/s: enough load to spill past one
-                                   # worker's Algorithm 1 budget
-    arrivals = np.cumsum(rng.exponential(1.0 / rate, n_req))
-    l_ins = rng.integers(64, 961, n_req)
-    l_ins[0] = 960                              # one 1024-token bucket
-    l_reals = rng.integers(16, 33, n_req)
-    reqs = []
-    for c in counters:
-        c.launches = 0
-    start = time.perf_counter()
-    # a request is admitted at the first heartbeat after its arrival, one
-    # per heartbeat, so each gets a prefill iteration of its own and every
-    # worker that serves >= 4 requests can refit Eq. 2; TTFT counts from
-    # the arrival, so the wait for the heartbeat is charged
-    while len(reqs) < n_req:
-        i = len(reqs)
-        if time.perf_counter() - start >= arrivals[i]:
-            r = Request(l_in=int(l_ins[i]), l_pred=0, l_real=int(l_reals[i]),
-                        arrival=start + float(arrivals[i]))
-            r.tokens = [int(x) for x in rng.integers(2, arch.vocab, r.l_in)]
-            reqs.append(r)
-            cluster.submit(r)
-        cluster.heartbeat()
-    cluster.run_until_drained(max_beats=2000)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - start
-    launches = {c.__name__: c.launches for c in counters}
-
-    done = [r for r in reqs if r.state == ReqState.FINISHED]
-    if len(done) != n_req:
-        raise AssertionError(f"only {len(done)}/{n_req} requests finished")
-    for r in reqs:
-        if len(r.tokens) != r.l_in + r.l_out or r.l_out != r.l_real or \
-                not all(0 <= t < arch.vocab for t in r.tokens):
-            raise AssertionError(f"request {r.id}: bad tokens")
-    pre_t, dec_t = [], []
-    for w in cluster.workers.values():
-        pre_t += w.engine.traces.prefill_times
-        dec_t += w.engine.traces.decode_times
-    perf = cluster.perf
-    if "prefill" not in perf.max_rel_err or "decode" not in perf.max_rel_err:
-        raise AssertionError("TraceBuffer fit incomplete: "
-                             f"{perf.max_rel_err}")
-    out_tokens = sum(r.l_out for r in reqs)
-    result = {
-        "finished": len(done), "submitted": n_req,
-        "attainment": cluster.attainment(), "slo": [slo.ttft, slo.atgt],
-        "workers": len(cluster.workers),
-        "placed_on": [r.worker for r in reqs],
-        "wall_s": wall, "output_tokens": out_tokens,
-        "output_tokens_per_s": out_tokens / wall,
-        "prefill_iters": len(pre_t), "decode_iters": len(dec_t),
-        "mean_prefill_ms": 1e3 * float(np.mean(pre_t)),
-        "mean_decode_ms": 1e3 * float(np.mean(dec_t)),
-        "ttft_s": [r.ttft() for r in reqs], "atgt_s": [r.atgt() for r in reqs],
-        "eq2": {"k1": perf.prefill.k1, "c1": perf.prefill.c1},
-        "eq3": {"k2": perf.decode.k2, "c2": perf.decode.c2,
-                "c3": perf.decode.c3},
-        "max_rel_err": perf.max_rel_err, "launches": launches,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-    }
-    log("[main] " + json.dumps(result))
+    result, _, launches, _ = _serve_trace(torch, cluster, arch, counters,
+                                          "main")
     log(f"[main] mean decode iteration {result['mean_decode_ms']:.1f} ms; "
         f"run F (constant, an earlier run that promoted the weights every "
         f"step): {RUN_F_MS['main_mean_decode']} ms")
@@ -1341,6 +1411,136 @@ def main_path(torch, counters):
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
     return launches, arch, params, cluster.w32
+
+
+def chunk_plan(l_in: int, chunk: int):
+    """(Sq, Skv, q_offset) of each B2 launch of one layer when the engine
+    prefills a prompt of ``l_in`` tokens in chunks of ``chunk`` (each
+    padded to a power-of-two bucket of at least 8, attending to the
+    context before it and to itself, kv_len = Skv), or [] for a one-shot
+    prefill (``l_in <= chunk``)."""
+    if not chunk or l_in <= chunk:
+        return []
+    plan, done = [], 0
+    while done < l_in:
+        n = min(chunk, l_in - done)
+        bucket = max(8, 1 << (n - 1).bit_length())
+        plan.append((bucket, done + bucket, done))
+        done += n
+    return plan
+
+
+def _chunk_groups(by_name: dict) -> dict:
+    """Device ms by kernel name summed into the chunked prefill's parts:
+    the fp32 GEMMs, B2's fp32 route, B3 and the rest."""
+    out = {"fp32_gemm": 0.0, "flash_attention_fp32": 0.0, "rmsnorm": 0.0,
+           "rest": 0.0}
+    for name, ms in by_name.items():
+        low = name.lower()
+        part = ("flash_attention_fp32" if "flash_fwd_f32" in name
+                else "rmsnorm" if PORT_KERNELS["rmsnorm"] in name
+                else "fp32_gemm" if "gemm" in low or "xmma" in low
+                else "rest")
+        out[part] += ms
+    return out
+
+
+def chunked_serving_phase(torch, counters, arch, params, w32):
+    """The main path's configuration with Sarathi-style chunked prefill:
+    a ``ServingCluster`` of 2 workers on the same llama2-7b weights and the
+    same trace, ``EngineConfig(prefill_chunk=PREFILL_CHUNK)``. The main
+    path's cluster is gone (its KV pools with it); the workers share its
+    fp32 copy ``w32`` (a second copy would not fit beside the first on an
+    80 GB card). Gates as the main path's, and B2's fp32 route must have
+    launched once per chunk per layer of every prefill the engines ran.
+    Then the device time by kernel of one 960-token chunked prefill.
+    Returns B2's launches on this path by route."""
+    import numpy as np
+
+    from repro_torch.core.request import Request
+    from repro_torch.core.slo import SLO
+    from repro_torch.serving.cluster import ClusterConfig, ServingCluster
+    from repro_torch.serving.engine import EngineConfig
+    torch.cuda.reset_peak_memory_stats()
+    cfg = EngineConfig(prefill_chunk=PREFILL_CHUNK)
+    cluster = ServingCluster(arch, params, SLO(ttft=2.0, atgt=0.1),
+                             engine_cfg=cfg,
+                             cfg=ClusterConfig(policy="aladdin",
+                                               heartbeat_iters=1),
+                             n_workers=0, device="cuda")
+    cluster.w32 = w32
+    for _ in range(2):
+        cluster._spawn_worker()
+    if any(w.engine.w32 is not w32 for w in cluster.workers.values()):
+        raise AssertionError("chunked: a worker made its own fp32 copy")
+    log(f"[chunked] 2 workers, prefill_chunk {PREFILL_CHUNK}, sharing the "
+        f"main path's fp32 weights; memory allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB")
+    # each prefill the engines run, as its prompt length (a preempted
+    # request is prefilled again)
+    prefills = []
+    for w in cluster.workers.values():
+        def counted(req, run=w.engine._run_prefill):
+            prefills.append(req.l_in)
+            return run(req)
+        w.engine._run_prefill = counted
+    result, reqs, _, by_route = _serve_trace(torch, cluster, arch, counters,
+                                             "chunked")
+    L = arch.n_layers
+    want = {"fp32": L * sum(len(chunk_plan(n, PREFILL_CHUNK))
+                            for n in prefills),
+            "bf16": L * sum(not chunk_plan(n, PREFILL_CHUNK)
+                            for n in prefills)}
+    trace = {"fp32": L * sum(len(chunk_plan(r.l_in, PREFILL_CHUNK))
+                             for r in reqs),
+             "bf16": L * sum(not chunk_plan(r.l_in, PREFILL_CHUNK)
+                             for r in reqs)}
+    shapes = {}
+    for r in reqs:
+        for shape in chunk_plan(r.l_in, PREFILL_CHUNK):
+            shapes[str(shape)] = shapes.get(str(shape), 0) + 1
+    log(f"[chunked] B2 launches by route {by_route}; from the trace's "
+        f"prompts {trace} ({sum(shapes.values())} chunks a layer at (Sq, "
+        f"Skv, q_offset): {shapes}); from the {len(prefills)} prefills the "
+        f"engines ran {want}")
+    if by_route["fp32"] <= 0 or by_route != want:
+        raise AssertionError(f"chunked: B2 launched {by_route}, the "
+                             f"engines' prefills need {want}")
+    if want != trace:
+        log(f"[chunked] the count differs from the trace's: "
+            f"{len(prefills)} prefills for {len(reqs)} requests (a "
+            f"preempted request is prefilled again)")
+
+    # one 960-token prompt prefilled in chunks, on a drained worker
+    for w in cluster.workers.values():
+        del w.engine._run_prefill
+    eng = next(iter(cluster.workers.values())).engine
+    toks = [int(x) for x in np.random.default_rng(3).integers(2, arch.vocab,
+                                                                960)]
+
+    def prefill_960():
+        r = Request(l_in=960, l_pred=0, l_real=1)
+        r.tokens = list(toks)
+        eng._run_prefill(r)                 # ends in a host read
+        eng._free_slot(eng.slots.index(r))
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill_960()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    by_name, n_ops = _device_ms_by_kernel(torch, prefill_960, n=2)
+    split = _chunk_groups(by_name)
+    busy = sum(by_name.values())
+    log("[chunked] prefill 960 " + json.dumps({
+        "wall_ms": walls, "device_busy_ms": busy,
+        "device_idle_share": 1 - busy / min(walls) if busy else None,
+        "device_ops": n_ops, "by_part_ms": split,
+        "top_kernels_ms": [[k[:90], v] for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:8]]}))
+    log(f"[chunked] mean prefill iteration {result['mean_prefill_ms']:.1f} "
+        f"ms, decode {result['mean_decode_ms']:.1f} ms; peak memory "
+        f"{result['peak_mem_gb']:.1f} GB")
+    return by_route
 
 
 def _device_ms_by_kernel(torch, fn, n=3, host_keys=()):
@@ -3625,13 +3825,27 @@ def main() -> int:
             for v in b2.values())):
         raise AssertionError(f"B2 backward: ptxas spills, or no report: "
                              f"{b2}")
+    b2f = ptxas_report(_build.ptxas_log(), "flash_fwd_f32_kernel")
+    log("[build] B2 fp32 ptxas: " + json.dumps(b2f))
+    if _build.build_seconds() is not None and (len(b2f) < 2 or any(
+            v.get("spill_stores", 1) or v.get("spill_loads", 1)
+            for v in b2f.values())):
+        raise AssertionError(f"B2 fp32: ptxas spills, or no report: {b2f}")
 
     timer = Timer(torch)
     cases = kernel_phases(torch, F, timer)
     reference_check(torch)
     counters = (paged_decode_attention, flash_attention, rmsnorm)
     launches, arch, params, w32 = main_path(torch, counters)
+    main_routes = {"fp32": flash_attention.launches_fp32,
+                   "bf16": flash_attention.launches_bf16}
     gc.collect()                    # the cluster and its engines
+    t0 = time.perf_counter()
+    chunked_routes = chunked_serving_phase(torch, counters, arch, params,
+                                           w32)
+    gc.collect()                    # the chunked cluster and its engines
+    log(f"[chunked] chunked serving phase: {time.perf_counter() - t0:.1f}s "
+        f"wall; card {smi}")
     breakdown(torch, arch, params, w32)
     del params, w32                 # free llama2-7b and its fp32 copy
     gc.collect()                    # before the Mamba phases
@@ -3724,6 +3938,9 @@ def main() -> int:
 
     representative = {"rmsnorm": "1024x4096",
                       "flash_attention": "B=1 Sq=1024 Skv=1024 H=32/32 D=128",
+                      "flash_attention_fp32": "B=1 Sq=256 Skv=768 H=32/32 "
+                                              "D=128 q_offset=512 "
+                                              "kv_len=768",
                       "paged_decode_attention": "B=8 H=32/32 D=128 page=16 "
                                                 "max_pages=64 lengths<=1024",
                       "ssd_scan": "B=4 S=2048 H=64 P=64 G=1 N=128 Q=256 "
@@ -3734,21 +3951,31 @@ def main() -> int:
                                              "D=128 (training)",
                       "rmsnorm_bwd": "8192x4096 (training)"}
     kernels = []
-    for name in ("paged_decode_attention", "flash_attention", "rmsnorm",
-                 "ssd_scan", "ssd_scan_backward", "flash_attention_bwd",
-                 "rmsnorm_bwd"):
-        rep = next(c for c in cases if c["kernel"] == name
-                   and c["case"] == representative[name])
+    # B2's fp32 route is a kernel of its own (flash_fwd_f32_kernel), on the
+    # chunked serving phase's path; B2's row keeps the bf16 route
+    launches["flash_attention_fp32"] = chunked_routes["fp32"]
+    for name in ("paged_decode_attention", "flash_attention",
+                 "flash_attention_fp32", "rmsnorm", "ssd_scan",
+                 "ssd_scan_backward", "flash_attention_bwd", "rmsnorm_bwd"):
+        kernel = name.removesuffix("_fp32")
+        kind = "fp32" if name.endswith("_fp32") else None
+        rep = next(c for c in cases if c["kernel"] == kernel
+                   and c["case"] == representative[name]
+                   and kind in (None, c["dtype"]))
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[kernel],
+            "replaces": REPLACES[kernel], "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in cases
-                               if c["kernel"] == name),
+                               if c["kernel"] == kernel
+                               and kind in (None, c["dtype"])),
             "ms": rep["kernel_ms"], "device_ms": rep["device_ms"],
             "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"], "at": rep["case"],
             "dtype": rep["dtype"]})
+        if kernel == "flash_attention":
+            kernels[-1]["launches_by_route"] = (
+                chunked_routes if kind else main_routes)
     for name, c, n in (("fastsim_whole_trace", fastsim_case,
                         fastsim_launches),
                        ("fastsim_chunk", chunk_case, chunk_launches)):

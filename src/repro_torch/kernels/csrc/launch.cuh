@@ -17,12 +17,13 @@ int paged_decode_launch(const void* q, const void* k_pages,
                         int bf16, void* stream);
 
 // B2: causal/offset flash attention forward (flash_attention/csrc); lse
-// (B, Hq, Sq) fp32 or null: each row's logsumexp, for the backward
+// (B, Hq, Sq) fp32 or null: each row's logsumexp, for the backward; part:
+// the fp32 route's key splits' scratch (null when kv_splits is 1)
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, void* lse, const void* kv_len, int B,
-                           int Sq, int Skv, int Hq, int Hkv, int D,
+                           void* o, void* lse, const void* kv_len, void* part,
+                           int B, int Sq, int Skv, int Hq, int Hkv, int D,
                            int q_offset, int causal, float scale, int block_q,
-                           int bf16_in, void* stream);
+                           int kv_splits, int bf16_in, void* stream);
 
 // B2's backward, three passes (flash_attention/csrc/flash_attention_bwd.cu):
 // lse is the forward's; dq_acc (B, Sq, Hq, D) fp32 (dq itself for fp32

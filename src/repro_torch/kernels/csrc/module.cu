@@ -81,17 +81,18 @@ PyObject* paged_decode(PyObject*, PyObject* const* a, Py_ssize_t n) {
                 name);
 }
 
-// flash_attention(q, k, v, o, lse or None, kv_len or None, B, Sq, Skv, Hq,
-//                 Hkv, D, q_offset, causal, scale, block_q, bf16, stream)
+// flash_attention(q, k, v, o, lse or None, kv_len or None, part or None,
+//                 B, Sq, Skv, Hq, Hkv, D, q_offset, causal, scale, block_q,
+//                 kv_splits, bf16, stream)
 PyObject* flash_attention(PyObject*, PyObject* const* a, Py_ssize_t n) {
   const char* name = "flash_attention";
-  const Args in(a, n, "ppppppiiiiiiiifiip", name);
+  const Args in(a, n, "pppppppiiiiiiiifiiip", name);
   if (!in.ok) return nullptr;
   return result(flash_attention_launch(
                     in.p(0), in.p(1), in.p(2), in.p(3), in.p(4), in.p(5),
-                    in.i(6), in.i(7), in.i(8), in.i(9), in.i(10), in.i(11),
-                    in.i(12), in.i(13), in.f(14), in.i(15), in.i(16),
-                    in.p(17)),
+                    in.p(6), in.i(7), in.i(8), in.i(9), in.i(10), in.i(11),
+                    in.i(12), in.i(13), in.i(14), in.f(15), in.i(16),
+                    in.i(17), in.i(18), in.p(19)),
                 name);
 }
 

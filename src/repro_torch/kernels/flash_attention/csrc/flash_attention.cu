@@ -22,7 +22,7 @@
 //   with kv_len[b] == 0 sees no key and gets the plain version's answer,
 //   the mean of V over all Skv keys (C7).
 //
-// What bounds it on the H100: bytes. Causal bf16 prefill at the 1024
+// What bounds the bf16 route on the H100: bytes. Causal bf16 prefill at the 1024
 // bucket (llama2-7b, 32 heads of 128) reads q, k, v once and writes o:
 // 33.6 MB, 0.010 ms at 3.35 TB/s, against 8.6 GFLOP of products, 0.0087
 // ms at 989 TFLOP/s. The two are close, so the kernel has to keep the
@@ -61,20 +61,33 @@
 //     setmaxnreg hands the producer's registers to the consumers.
 //   - O is normalised into a swizzled shared-memory tile and written by
 //     TMA stores, clipped at Sq and D.
-// fp32 (the engine's chunked prefill, in fp32 as in the reference; no fp32
-// tensor-core product without TF32 rounding): one CTA of 256 threads per
-// (64-row q block, q head, batch) walking 64-key tiles, each thread owning
-// a 4x4 block of the score tile and a 4 x D/16 slice of the output, plain
-// fp32 FMAs on the CUDA cores, tiles padded by 4 floats.
+// fp32 (the engine's chunked prefill, in fp32 as in the reference), on the
+// tensor cores at fp32 accuracy: each fp32 operand of S = Q K^T and of
+// O = P V is split into a tf32 hi part and a tf32 remainder, and each
+// product is taken as hi.hi + hi.lo + lo.hi with fp32 accumulation, three
+// `mma.sync.m16n8k8` tf32 products where the plain version has one fp32
+// product (`mma.sync`, not `wgmma`: wgmma takes tf32 B operands K-major
+// only, and V lies D-major). What bounds it: at the chunked path's (Sq
+// 256, Skv 768, q_offset 512), 32/32 heads of 128, it moves 33.6 MB (0.010
+// ms at 3.35 TB/s) and does 2.69 GFLOP of products, 0.040 ms as fp32 FMAs
+// at 67 TFLOP/s and 0.016 ms as three tf32 products at 495: the three tf32
+// products bound it. The design (flash_fwd_f32_kernel below): a CTA of
+// 256 threads a 64-row q tile, its two groups of four warps taking the
+// 32-key tiles in turns through their own 16-byte `cp.async` rings of
+// three stages, so two tiles load while one is multiplied; Q in shared
+// memory; softmax in fp32 with expf; the groups' partial rows merged by
+// their max and sum through shared memory at the end.
 #include <cuda.h>
 
 #include "common.cuh"
 #include "launch.cuh"
+#include "mma_sync.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+namespace sm90 = repro::sm90;
 
 // A query row that sees no key (kv_len[b] <= 0): the plain versions
 // softmax Skv logits of -1e30 each, which is uniform, so every row of the
@@ -94,52 +107,94 @@ __device__ void mean_v_rows(const T* vp, size_t kv_row, int Skv, int D,
     for (int r = r0 + tid; r < r1; r += n_threads) lp[r] = INFINITY;
 }
 
-// ---- fp32 kernel (CUDA cores) -------------------------------------------
+// ---- fp32 kernel (tensor cores, split tf32) -----------------------------
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
-
-template <int D>
-constexpr int smem_bytes_f32() {
-  return (kBQ + 2 * kBK) * (D + 4) * static_cast<int>(sizeof(float));
-}
-
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int kF32WarpsQ = 4;               // warps along q, 16 rows each
+constexpr int kF32BQ = 16 * kF32WarpsQ;     // q rows of a CTA
+constexpr int kF32BK = 32;                  // keys of a K/V tile
+constexpr int kF32Groups = 2;               // key groups of a CTA
+constexpr int kF32GroupThreads = 32 * kF32WarpsQ;
+constexpr int kF32Threads = kF32Groups * kF32GroupThreads;
+constexpr int kF32Stages = 3;               // K/V ring depth of a group
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct F32Config {
+  static constexpr int Q_FLOATS = kF32BQ * D;      // the Q tile
+  static constexpr int STAGE = 2 * kF32BK * D;     // a K and a V tile
+  static constexpr int SMEM =
+      (Q_FLOATS + kF32Groups * kF32Stages * STAGE) *
+      static_cast<int>(sizeof(float));
+  // what a lane of key group 1 hands to its twin in group 0: O, m, l
+  static constexpr int XCH = D / 2 + 4;
+  static_assert(kF32WarpsQ * XCH * 32 <= kF32Groups * kF32Stages * STAGE,
+                "the hand-over must fit in the ring");
+};
+
+// Tiles are unpadded rows of D floats, their 16-byte chunks swizzled so
+// that the fragment loads hit 32 distinct banks: chunk c of row r lies at
+// chunk c ^ ((r & 1) << 2) of a Q or K tile (a quarter-warp reads rows g
+// = 0, 1 at chunks 4p + t) and at c ^ (r & 6) of a V tile (rows 2t, chunks
+// 8m + g).
+__device__ __forceinline__ int swz_qk(int r, int c) {
+  return c ^ ((r & 1) << 2);
+}
+__device__ __forceinline__ int swz_v(int r, int c) { return c ^ (r & 6); }
+
+// acc_hi += a_hi b_hi; acc_lo += a_hi b_lo + a_lo b_hi: one fp32 product
+// as three tf32 products, the small ones apart so that the three chains
+// of an output tile overlap
+__device__ __forceinline__ void mma3(float (&acc_hi)[4], float (&acc_lo)[4],
+                                     const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  repro::mma_tf32(acc_lo, al, bh0, bh1);
+  repro::mma_tf32(acc_lo, ah, bl0, bl1);
+  repro::mma_tf32(acc_hi, ah, bh0, bh1);
+}
+
+// One CTA of 256 threads a (64-row q tile, q head, batch, key split),
+// heaviest tile first. With kv_splits > 1 (the wrapper's choice when the
+// q tiles alone leave SMs idle) split s of a q tile takes the s-th run of
+// its 32-key tiles and writes its rows normalised, with their logsumexps,
+// to `part`, and flash_fwd_f32_merge_kernel merges the splits. The Q tile
+// lands in shared memory by cp.async; the CTA's two key groups of four
+// warps (16 q rows a warp) take its K/V tiles in turns (group 0 the even
+// ones), each through its own 3-stage cp.async ring and named barrier. At
+// the end group 1 hands its O, row max and row sums to group 0 through
+// shared memory, which merges them (the rows' logsumexps) and stores O.
+//
+// Fragments (mma_tf32; g = lane / 4, t = lane % 4). The reduction index
+// of each product is permuted, which any product allows when both
+// operands agree: S = Q K^T takes columns 16p + 4t + {0, 1} in k-step 2p
+// and + {2, 3} in 2p + 1, so Q and K come in as float4s; P V takes key
+// 2t as k-index t and 2t + 1 as t + 4, so S's accumulator is P's A
+// fragment as it lies. The output columns of P V are permuted too: 8-wide
+// tile 4m + c, index g, is column 32m + 4g + c, so a float4 of V feeds
+// four tiles and a thread's O sits at columns 32m + 8t .. + 7 of its rows.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse,
-                         const int* __restrict__ kv_len, int Sq, int Skv,
+                         const int* __restrict__ kv_len,
+                         float* __restrict__ part, int B, int Sq, int Skv,
                          int Hq, int Hkv, int q_offset, int causal,
-                         float scale) {
-  constexpr int LD = D + 4;     // padded row of the Q/K/V tiles
-  constexpr int LDP = kBQ + 4;  // padded row of P (stored key-major)
-  constexpr int NG = D / 64;    // 4-wide column groups per thread in P.V
-  static_assert(kBK * LDP <= kBK * LD, "P must fit in the K tile");
+                         float scale, int kv_splits) {
+  using C = F32Config<D>;
+  constexpr int NT = D / 8;        // 8-column tiles of O
+  constexpr int KT = kF32BK / 8;   // 8-key tiles of S
+  constexpr int CHUNKS = D / 4;    // 16-byte pieces of a K or V row
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + kBQ * LD;
-  float* sV = sK + kBK * LD;
-  float* sP = sK;
+  float* smem = reinterpret_cast<float*>(smem4);
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
+  const int n_qt = (Sq + kF32BQ - 1) / kF32BQ;
+  const int split = blockIdx.x % kv_splits, tile = blockIdx.x / kv_splits;
+  const int hb = tile % (Hq * B);
+  const int h = hb % Hq, b = hb / Hq;
+  const int q0 = (n_qt - 1 - tile / (Hq * B)) * kF32BQ;
   const int hk = h / (Hq / Hkv);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const size_t q_row = static_cast<size_t>(Hq) * D;
   const size_t kv_row = static_cast<size_t>(Hkv) * D;
   const float* qp = q + static_cast<size_t>(b) * Sq * q_row + h * D;
@@ -148,137 +203,317 @@ __global__ void __launch_bounds__(kThreads)
   float* op = o + static_cast<size_t>(b) * Sq * q_row + h * D;
   float* lp = lse != nullptr ? lse + (static_cast<size_t>(b) * Hq + h) * Sq
                              : nullptr;
-  if (kv_len != nullptr && kv_len[b] <= 0) {
-    mean_v_rows(vp, kv_row, Skv, D, op, q_row, lp, q0, min(q0 + kBQ, Sq),
-                threadIdx.x, blockDim.x);
+  if (kv_len != nullptr && kv_len[b] <= 0) {  // the merge leaves these rows
+    if (split == 0)
+      mean_v_rows(vp, kv_row, Skv, D, op, q_row, lp, q0,
+                  min(q0 + kF32BQ, Sq), threadIdx.x, blockDim.x);
     return;
   }
+  // keys this q tile can see: [0, kv_hi), as n_tiles K/V tiles; this
+  // split's: tiles [t_lo, t_lo + n_split_tiles)
+  const int kv_lim = kv_len != nullptr ? min(Skv, kv_len[b]) : Skv;
+  const int kv_hi =
+      causal ? min(kv_lim, q_offset + min(q0 + kF32BQ, Sq)) : kv_lim;
+  const int n_tiles = (kv_hi + kF32BK - 1) / kF32BK;
+  const int per_split = (n_tiles + kv_splits - 1) / kv_splits;
+  const int t_lo = split * per_split;
+  const int n_split_tiles = max(0, min(n_tiles, t_lo + per_split) - t_lo);
 
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D, qr = q0 + r;
-    sQ[r * LD + c] = qr < Sq ? qp[qr * q_row + c] : 0.f;
-  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp / kF32WarpsQ, wq = warp % kF32WarpsQ;
+  const int g = lane / 4, t = lane % 4;
+  const int gtid = threadIdx.x % kF32GroupThreads;
+  const int n_mine = (n_split_tiles - grp + kF32Groups - 1) / kF32Groups;
+  float* sq = smem;
+  float* ring = smem + C::Q_FLOATS + grp * kF32Stages * C::STAGE;
 
-  // keys this q block can see: [0, kv_hi)
-  int kv_hi = Skv;
-  if (kv_len != nullptr) kv_hi = min(kv_hi, kv_len[b]);
-  if (causal) kv_hi = min(kv_hi, q_offset + min(q0 + kBQ, Sq));
-
-  float m[4], l_run[4], acc[4][4 * NG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NG; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < kv_hi; k0 += kBK) {
-    __syncthreads();  // the previous tile's P and V are no longer read
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D, kr = k0 + r;
-      const bool live = kr < kv_hi;
-      sK[r * LD + c] = live ? kp[kr * kv_row + c] : 0.f;
-      sV[r * LD + c] = live ? vp[kr * kv_row + c] : 0.f;
+  // this group's j-th tile (key tile t_lo + grp + 2j) into stage j %
+  // kF32Stages; keys at or past kv_hi arrive as zeros
+  auto load = [&](int j) {
+    float* sk = ring + (j % kF32Stages) * C::STAGE;
+    float* sv = sk + kF32BK * D;
+    const int k0 = (t_lo + grp + kF32Groups * j) * kF32BK;
+    for (int i = gtid; i < kF32BK * CHUNKS; i += kF32GroupThreads) {
+      const int r = i / CHUNKS, c = i % CHUNKS;
+      const bool live = k0 + r < kv_hi;
+      const size_t off = live ? (k0 + r) * kv_row + 4 * c : 0;
+      repro::cp_async16(sk + r * D + 4 * swz_qk(r, c), kp + off,
+                        live ? 16 : 0);
+      repro::cp_async16(sv + r * D + 4 * swz_v(r, c), vp + off,
+                        live ? 16 : 0);
     }
-    __syncthreads();
+  };
 
-    float s[4][4];
+  // the Q tile (rows past Sq as zeros), then each group's first tiles;
+  // every thread waits for its own Q copies, the barrier for the others'
+  for (int i = threadIdx.x; i < kF32BQ * CHUNKS; i += kF32Threads) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool live = q0 + r < Sq;
+    repro::cp_async16(sq + r * D + 4 * swz_qk(r, c),
+                      qp + (live ? (q0 + r) * q_row + 4 * c : 0),
+                      live ? 16 : 0);
+  }
+  repro::cp_async_commit();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&sQ[(ty * 4 + i) * LD + c]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&sK[(tx + 16 * j) * LD + c]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[i][j] += qv[i].x * kv[j].x + qv[i].y * kv[j].y +
-                     qv[i].z * kv[j].z + qv[i].w * kv[j].w;
-    }
+  for (int j = 0; j < kF32Stages - 1; ++j) {
+    if (j < n_mine) load(j);
+    repro::cp_async_commit();
+  }
+  repro::cp_async_wait<kF32Stages - 1>();
+  __syncthreads();
+  // this warp's rows of Q: row0 = wq * 16 + g and row0 + 8 of the tile
+  const int row0 = q0 + wq * 16 + g;
+  const float* sq0 = sq + (wq * 16 + g) * D;
+  const float* sq1 = sq0 + 8 * D;
 
+  // keys each of this thread's rows sees; tiles that end at or below the
+  // limit of the warp's first row need no mask
+  const int lim[2] = {causal ? min(kv_lim, q_offset + row0 + 1) : kv_lim,
+                      causal ? min(kv_lim, q_offset + row0 + 9) : kv_lim};
+  const int plain_end =
+      causal ? min(kv_lim, q_offset + q0 + wq * 16 + 1) : kv_lim;
+
+  float acc[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_offset + q0 + ty * 4 + i;
-      float rmax = -INFINITY;
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < kv_hi && (!causal || kpos <= qpos);
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        rmax = fmaxf(rmax, s[i][j]);
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_mine; ++j) {
+    // tile j has landed for every thread of the group, and every warp is
+    // done with tile j - 1, whose stage now takes tile j + 2
+    repro::cp_async_wait<kF32Stages - 2>();
+    sm90::named_bar_sync(1 + grp, kF32GroupThreads);
+    if (j + kF32Stages - 1 < n_mine) load(j + kF32Stages - 1);
+    repro::cp_async_commit();
+    const float* sk = ring + (j % kF32Stages) * C::STAGE;
+    const float* sv = sk + kF32BK * D;
+    const int k0 = (t_lo + grp + kF32Groups * j) * kF32BK;
+
+    // S = Q K^T for 16 rows and 32 keys
+    float sh[KT][4], sl[KT][4];
+#pragma unroll
+    for (int n = 0; n < KT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sh[n][e] = sl[n][e] = 0.f;
+#pragma unroll
+    for (int p = 0; p < D / 16; ++p) {
+      // columns 16p + 4t .. + 3 of rows row0 and row0 + 8, and of key 8n + g
+      const int cq = 4 * swz_qk(g, 4 * p + t);
+      const float4 qa = *reinterpret_cast<const float4*>(sq0 + cq);
+      const float4 qb = *reinterpret_cast<const float4*>(sq1 + cq);
+      uint32_t ah[2][4], al[2][4];
+      repro::split_tf32(qa.x, ah[0][0], al[0][0]);
+      repro::split_tf32(qb.x, ah[0][1], al[0][1]);
+      repro::split_tf32(qa.y, ah[0][2], al[0][2]);
+      repro::split_tf32(qb.y, ah[0][3], al[0][3]);
+      repro::split_tf32(qa.z, ah[1][0], al[1][0]);
+      repro::split_tf32(qb.z, ah[1][1], al[1][1]);
+      repro::split_tf32(qa.w, ah[1][2], al[1][2]);
+      repro::split_tf32(qb.w, ah[1][3], al[1][3]);
+#pragma unroll
+      for (int n = 0; n < KT; ++n) {
+        const float4 kv4 = *reinterpret_cast<const float4*>(
+            sk + (8 * n + g) * D + cq);
+        uint32_t bh[4], bl[4];
+        repro::split_tf32(kv4.x, bh[0], bl[0]);
+        repro::split_tf32(kv4.y, bh[1], bl[1]);
+        repro::split_tf32(kv4.z, bh[2], bl[2]);
+        repro::split_tf32(kv4.w, bh[3], bl[3]);
+        mma3(sh[n], sl[n], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+        mma3(sh[n], sl[n], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
       }
-      const float m_new = fmaxf(m[i], row_max16(rmax));
-      float alpha = 1.f, psum = 0.f;
-      if (m_new == -INFINITY) {  // no live key for this row yet
+    }
+
+    // online softmax in fp32 (expf); sh[n][e] is row row0 + 8 (e >> 1),
+    // key k0 + 8n + 2t + (e & 1). l_run is this thread's share of the row
+    // sum; the quad's shares are added at the end.
+    const bool masked = k0 + kF32BK > plain_end;
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      } else {
-        alpha = expf(m[i] - m_new);
+    for (int n = 0; n < KT; ++n)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = expf(s[i][j] - m_new);
-          psum += s[i][j];
+      for (int e = 0; e < 4; ++e) {
+        float x = (sh[n][e] + sl[n][e]) * scale;
+        if (masked && k0 + 8 * n + 2 * t + (e & 1) >= lim[e >> 1])
+          x = -INFINITY;
+        sh[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float m_use[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;  // no live key yet
+      alpha[r] = expf(m_run[r] - m_use[r]);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < KT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sh[n][e] = expf(sh[n][e] - m_use[e >> 1]);
+        l_run[e >> 1] += sh[n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P V: k-step kk takes keys 8kk + 2t (index t) and 8kk + 2t + 1
+    // (index t + 4), straight from S's accumulator
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t ah[4], al[4];
+      repro::split_tf32(sh[kk][0], ah[0], al[0]);
+      repro::split_tf32(sh[kk][2], ah[1], al[1]);
+      repro::split_tf32(sh[kk][1], ah[2], al[2]);
+      repro::split_tf32(sh[kk][3], ah[3], al[3]);
+      // rows 8kk + 2t and + 1, chunk 8mm + g of each (both swizzled by 2t)
+      const float* v0 = sv + (8 * kk + 2 * t) * D + 4 * (g ^ (2 * t));
+#pragma unroll
+      for (int mm = 0; mm < D / 32; ++mm) {
+        const float4 x0 = *reinterpret_cast<const float4*>(v0 + 32 * mm);
+        const float4 x1 = *reinterpret_cast<const float4*>(v0 + D + 32 * mm);
+        const float b0[4] = {x0.x, x0.y, x0.z, x0.w};
+        const float b1[4] = {x1.x, x1.y, x1.z, x1.w};
+        uint32_t bh0[4], bl0[4], bh1[4], bl1[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          repro::split_tf32(b0[c], bh0[c], bl0[c]);
+          repro::split_tf32(b1[c], bh1[c], bl1[c]);
         }
-      }
-      l_run[i] = l_run[i] * alpha + row_sum16(psum);
-      m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4 * NG; ++c) acc[i][c] *= alpha;
-    }
-
-    __syncthreads();  // every thread is done reading K before P lands there
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sP[(tx + 16 * j) * LDP + ty * 4 + i] = s[i][j];
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&sP[kk * LDP + ty * 4]);
-      const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float4 v4 =
-            *reinterpret_cast<const float4*>(&sV[kk * LD + g * 64 + tx * 4]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][g * 4 + 0] += pr[i] * v4.x;
-          acc[i][g * 4 + 1] += pr[i] * v4.y;
-          acc[i][g * 4 + 2] += pr[i] * v4.z;
-          acc[i][g * 4 + 3] += pr[i] * v4.w;
+        for (int c = 0; c < 4; ++c) {
+          repro::mma_tf32(acc[4 * mm + c], al, bh0[c], bh1[c]);
+          repro::mma_tf32(acc[4 * mm + c], ah, bl0[c], bl1[c]);
         }
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          repro::mma_tf32(acc[4 * mm + c], ah, bh0[c], bh1[c]);
       }
     }
   }
 
+  // group 1 hands its O, row max and row sums to group 0, lane by lane
+  repro::cp_async_wait<0>();
+  __syncthreads();  // both groups are done with their rings
+  float* xw = smem + C::Q_FLOATS + wq * C::XCH * 32 + lane;
+  if (grp == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty * 4 + i;
-    if (qr >= Sq) continue;
-    const float inv = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
+      for (int e = 0; e < 4; ++e) xw[(4 * n + e) * 32] = acc[n][e];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        op[qr * q_row + g * 64 + tx * 4 + e] = acc[i][g * 4 + e] * inv;
-    if (lp != nullptr && tx == 0)
-      lp[qr] = l_run[i] > 0.f ? m[i] + logf(l_run[i]) : INFINITY;
+    for (int r = 0; r < 2; ++r) {
+      xw[(D / 2 + r) * 32] = m_run[r];
+      xw[(D / 2 + 2 + r) * 32] = l_run[r];
+    }
+  }
+  __syncthreads();
+  if (grp == 1) return;
+  // rows go to O, or with key splits to this split's rows of `part`:
+  // (kv_splits, B, Hq, Sq, D) normalised rows, then (kv_splits, B, Hq, Sq)
+  // logsumexps, -inf for a row that sees no key of the split
+  const size_t rows = static_cast<size_t>(B) * Hq * Sq;
+  const size_t head_row = (static_cast<size_t>(b) * Hq + h) * Sq;
+  float* out = kv_splits == 1 ? op : part + (split * rows + head_row) * D;
+  const size_t out_row = kv_splits == 1 ? q_row : D;
+  float* lout = kv_splits == 1
+                    ? lp
+                    : part + kv_splits * rows * D + split * rows + head_row;
+  const float no_key = kv_splits == 1 ? INFINITY : -INFINITY;
+  float f0[2], f1[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = xw[(D / 2 + r) * 32], l1 = xw[(D / 2 + 2 + r) * 32];
+    const float m = fmaxf(m_run[r], m1);
+    const float a0 = m == -INFINITY ? 0.f : expf(m_run[r] - m);
+    const float a1 = m == -INFINITY ? 0.f : expf(m1 - m);
+    float l = a0 * l_run[r] + a1 * l1;
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    f0[r] = a0 * inv;
+    f1[r] = a1 * inv;
+    const int row = row0 + 8 * r;
+    if (lout != nullptr && t == 0 && row < Sq)
+      lout[row] = l > 0.f ? m + logf(l) : no_key;
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[n][e] = acc[n][e] * f0[e >> 1] + xw[(4 * n + e) * 32] * f1[e >> 1];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    float* orow = out + row * out_row + 8 * t;
+#pragma unroll
+    for (int mm = 0; mm < D / 32; ++mm) {
+      *reinterpret_cast<float4*>(orow + 32 * mm) =
+          make_float4(acc[4 * mm][2 * r], acc[4 * mm + 1][2 * r],
+                      acc[4 * mm + 2][2 * r], acc[4 * mm + 3][2 * r]);
+      *reinterpret_cast<float4*>(orow + 32 * mm + 4) = make_float4(
+          acc[4 * mm][2 * r + 1], acc[4 * mm + 1][2 * r + 1],
+          acc[4 * mm + 2][2 * r + 1], acc[4 * mm + 3][2 * r + 1]);
+    }
   }
 }
 
-// ---- bf16 kernel (TMA ring + wgmma) -------------------------------------
+// The key splits' rows merged, one warp a (batch, head, row): O = sum_s w_s
+// O_s / sum_s w_s and lse = max + log(sum_s w_s), w_s = exp(lse_s - max),
+// lse_s the split's logsumexp (-inf where the row sees none of its keys).
+// Rows of a sequence that sees no key were written by its first split.
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_fwd_f32_merge_kernel(const float* __restrict__ part,
+                               const int* __restrict__ kv_len,
+                               float* __restrict__ o, float* __restrict__ lse,
+                               int B, int Sq, int Hq, int kv_splits) {
+  const int w = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t rows = static_cast<size_t>(B) * Hq * Sq;
+  if (static_cast<size_t>(w) >= rows) return;
+  const int row = w % Sq, bh = w / Sq, h = bh % Hq, b = bh / Hq;
+  if (kv_len != nullptr && kv_len[b] <= 0) return;
+  const float* lse_part = part + kv_splits * rows * D;
+  float mx = -INFINITY;
+  for (int s = 0; s < kv_splits; ++s)
+    mx = fmaxf(mx, lse_part[s * rows + w]);
+  const bool on = 4 * lane < D;  // this lane's columns 4 lane .. + 3
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float tot = 0.f;
+  for (int s = 0; s < kv_splits; ++s) {
+    const float ls = lse_part[s * rows + w];
+    const float wt = ls == -INFINITY ? 0.f : expf(ls - mx);
+    tot += wt;
+    if (on) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          part + (s * rows + w) * D + 4 * lane);
+      acc.x += wt * x.x;
+      acc.y += wt * x.y;
+      acc.z += wt * x.z;
+      acc.w += wt * x.w;
+    }
+  }
+  const float inv = tot > 0.f ? 1.f / tot : 0.f;
+  if (on)
+    *reinterpret_cast<float4*>(
+        o + ((static_cast<size_t>(b) * Sq + row) * Hq + h) * D + 4 * lane) =
+        make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  if (lse != nullptr && lane == 0)
+    lse[w] = tot > 0.f ? mx + logf(tot) : INFINITY;
+}
 
-namespace sm90 = repro::sm90;
+// ---- bf16 kernel (TMA ring + wgmma) -------------------------------------
 
 constexpr int kPanelCols = 64;  // bf16 columns of one 128-byte swizzled row
 
@@ -710,18 +945,24 @@ __global__ void __launch_bounds__(TcConfig<D, NC>::THREADS,
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* lse, const int* kv_len, int B, int Sq, int Skv,
-                       int Hq, int Hkv, int q_offset, int causal, float scale,
+                       float* lse, const int* kv_len, float* part, int B,
+                       int Sq, int Skv, int Hq, int Hkv, int q_offset,
+                       int causal, float scale, int kv_splits,
                        cudaStream_t stream) {
+  using C = F32Config<D>;
   static bool configured = false;
-  cudaError_t e = sm90::allow_smem(flash_fwd_f32_kernel<D>,
-                                   smem_bytes_f32<D>(), &configured);
+  cudaError_t e =
+      sm90::allow_smem(flash_fwd_f32_kernel<D>, C::SMEM, &configured);
   if (e != cudaSuccess) return e;
-  dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, smem_bytes_f32<D>(), stream>>>(
+  const int n_ctas = (Sq + kF32BQ - 1) / kF32BQ * Hq * B * kv_splits;
+  flash_fwd_f32_kernel<D><<<n_ctas, kF32Threads, C::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, kv_len, Sq,
-      Skv, Hq, Hkv, q_offset, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, kv_len,
+      part, B, Sq, Skv, Hq, Hkv, q_offset, causal, scale, kv_splits);
+  if (kv_splits == 1 || (e = cudaGetLastError()) != cudaSuccess) return e;
+  const long long rows = static_cast<long long>(B) * Hq * Sq;
+  flash_fwd_f32_merge_kernel<D><<<(rows + 7) / 8, 256, 0, stream>>>(
+      part, kv_len, static_cast<float*>(o), lse, B, Sq, Hq, kv_splits);
   return cudaGetLastError();
 }
 
@@ -782,22 +1023,26 @@ cudaError_t launch_bf16_tile(int block_q, const void* q, const void* k,
 
 // kv_len: (B,) int32 on the device, or null; lse: (B, Hq, Sq) fp32, or
 // null. Tensors must be 16-byte aligned. block_q (64 or 128) is the bf16
-// kernel's q tile, chosen by the wrapper; the fp32 kernel always takes 64
-// rows. bf16 needs Skv >= 1 (a tensor map has no empty dimension).
+// kernel's q tile, kv_splits (>= 1) the fp32 kernel's key splits, each
+// chosen by the wrapper; the fp32 kernel always takes 64 rows, and with
+// kv_splits > 1 `part` holds kv_splits * B * Hq * Sq * (D + 1) floats of
+// scratch. bf16 needs Skv >= 1 (a tensor map has no empty dimension).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
-                                      const void* kv_len, int B, int Sq,
-                                      int Skv, int Hq, int Hkv, int D,
+                                      const void* kv_len, void* part, int B,
+                                      int Sq, int Skv, int Hq, int Hkv, int D,
                                       int q_offset, int causal, float scale,
-                                      int block_q, int bf16_in,
+                                      int block_q, int kv_splits, int bf16_in,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kl = static_cast<const int*>(kv_len);
   float* lp = static_cast<float*>(lse);
+  float* pp = static_cast<float*>(part);
   if (B == 0 || Sq == 0) return static_cast<int>(cudaGetLastError());
   if (Hkv <= 0 || Hq % Hkv != 0 ||
       (D != 64 && D != 128 && !(bf16_in && D == 112)) ||
-      (bf16_in && (Skv <= 0 || (block_q != 64 && block_q != 128))))
+      (bf16_in && (Skv <= 0 || (block_q != 64 && block_q != 128))) ||
+      (!bf16_in && (kv_splits < 1 || (kv_splits > 1 && pp == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (bf16_in)
@@ -811,9 +1056,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                            Sq, Skv, Hq, Hkv, q_offset,
                                            causal, scale, s);
   else
-    e = D == 64 ? launch_f32<64>(q, k, v, o, lp, kl, B, Sq, Skv, Hq, Hkv,
-                                 q_offset, causal, scale, s)
-                : launch_f32<128>(q, k, v, o, lp, kl, B, Sq, Skv, Hq, Hkv,
-                                  q_offset, causal, scale, s);
+    e = D == 64 ? launch_f32<64>(q, k, v, o, lp, kl, pp, B, Sq, Skv, Hq, Hkv,
+                                 q_offset, causal, scale, kv_splits, s)
+                : launch_f32<128>(q, k, v, o, lp, kl, pp, B, Sq, Skv, Hq,
+                                  Hkv, q_offset, causal, scale, kv_splits, s);
   return static_cast<int>(e);
 }

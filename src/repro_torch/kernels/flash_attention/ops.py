@@ -6,14 +6,21 @@ oracle (``repro.kernels.flash_attention.ref``): KV chunks of ``kv_chunk``
 with an fp32 running softmax, and ``p`` cast to ``v``'s type before
 ``p @ v``, so bf16 rounding matches the JAX prefill path. A CPU tensor goes
 to it; a CUDA tensor goes to the kernel in ``csrc/flash_attention.cu`` or
-raises. On the card the bf16 kernel's q tile and launch order are chosen
-here (``launch_plan``), where the CPU tests can reach them.
+raises. On the card the bf16 kernel's q tile and launch order
+(``launch_plan``) and the fp32 kernel's key splits (``f32_kv_splits``,
+``f32_tiles``) are chosen here, where the CPU tests can reach them.
 
 Under autograd the forward kernel also writes each row's logsumexp, and the
 backward is a kernel too (``csrc/flash_attention_bwd.cu``,
 ``flash_attention_backward``); its plain version is the closed form
 ``flash_attention_bwd``, and the tiles it visits are listed by
-``bwd_tiles``."""
+``bwd_tiles``.
+
+The fp32 kernel takes each product on the tensor cores as three tf32
+products of split operands; ``flash_attention_split`` repeats those
+numerics in plain PyTorch, for the tests. ``flash_attention.launches``
+counts every launch, ``flash_attention.launches_fp32`` and
+``launches_bf16`` each route's."""
 from __future__ import annotations
 
 from typing import Optional
@@ -52,6 +59,46 @@ def tile_rows(b: int, sq: int, hq: int):
         hb = tile % (hq * b)
         q0 = (n_qt - 1 - tile // (hq * b)) * block_q
         out.append((hb // hq, hb % hq, q0, min(block_q, sq - q0)))
+    return out
+
+
+def f32_kv_splits(b: int, sq: int, skv: int, hq: int) -> int:
+    """The fp32 kernel's key splits for q (b, sq, hq, D) against skv keys:
+    1 when its 64-row q tiles fill the card; else as many as keep every SM
+    busy (``N_SMS`` // tiles), at most one for every 64 keys, so that each
+    split's two key groups get a 32-key tile each."""
+    tiles = -(-sq // 64) * hq * b
+    return max(1, min(N_SMS // tiles, -(-skv // 64))) if tiles else 1
+
+
+def f32_tiles(b: int, sq: int, skv: int, hq: int, *, causal: bool = True,
+              q_offset: int = 0, kv_len=None):
+    """The fp32 kernel's CTAs in launch order: (batch, head, first q row,
+    key split, group 0's K/V tiles, group 1's), each tile as (first key,
+    keys). A CTA takes a 64-row q tile, heaviest first, and split s of
+    ``f32_kv_splits`` takes the s-th run of the 32-key tiles that the q
+    tile can see (past kv_len and, if causal, its last row's position none
+    is loaded); its two key groups take them in turns. A sequence that
+    sees no key (``kv_len[b] == 0``) loads none."""
+    splits = f32_kv_splits(b, sq, skv, hq)
+    n_qt = -(-sq // 64)
+    out = []
+    for cta in range(n_qt * hq * b * splits):
+        split, tile = cta % splits, cta // splits
+        hb = tile % (hq * b)
+        h, bb = hb % hq, hb // hq
+        q0 = (n_qt - 1 - tile // (hq * b)) * 64
+        groups = ([], [])
+        kv_lim = skv if kv_len is None else min(skv, int(kv_len[bb]))
+        if kv_lim > 0:
+            kv_hi = min(kv_lim, q_offset + min(q0 + 64, sq)) if causal \
+                else kv_lim
+            n_tiles = -(-kv_hi // 32)
+            per = -(-n_tiles // splits)
+            lo = split * per
+            for t in range(lo, min(n_tiles, lo + per)):
+                groups[(t - lo) % 2].append((32 * t, min(32, kv_hi - 32 * t)))
+        out.append((bb, h, q0, split, *groups))
     return out
 
 
@@ -199,6 +246,64 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
                           causal, kv_chunk, return_lse)
 
 
+def _tf32(x: torch.Tensor, rna: bool = True) -> torch.Tensor:
+    """fp32 ``x`` cut to tf32's 19 bits: rounded to nearest with ties away
+    from zero (``rna``, the kernel's hi part) or truncated, as the tensor
+    cores read an operand register (its lo part)."""
+    bits = x.contiguous().view(torch.int32)
+    if rna:
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+def split_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum(eq, a, b) of fp32 operands as B2's fp32 kernel takes it on
+    the tensor cores: each operand split into hi = tf32(x) (nearest) and lo
+    = x - hi, read truncated to tf32, and hi.hi + (hi.lo + lo.hi) summed in
+    fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah, rna=False), _tf32(b - bh, rna=False)
+    return torch.einsum(eq, ah, bh) + (torch.einsum(eq, ah, bl)
+                                       + torch.einsum(eq, al, bh))
+
+
+def flash_attention_split(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                          kv_len: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
+    """The fp32 kernel's numerics in plain PyTorch, for the tests: S = q
+    k^T and the unnormalised P V as ``split_einsum`` products, the masked
+    softmax in fp32 (exp against the row max), O = (P V) / l. A row that
+    sees no key gets the mean of V (C7) and, with ``return_lse``, a
+    logsumexp of +inf; otherwise as ``attention_dense_ref``. fp32 inputs
+    only."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    k, v = _repeat_kv(k, hq // hkv), _repeat_kv(v, hq // hkv)
+    s = split_einsum("bqhd,bkhd->bhqk", q, k) * scale
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((b, 1, sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        mask &= (qpos >= kpos[None, :])[None, None]
+    if kv_len is not None:
+        mask &= (kpos[None, :] < kv_len.to(q.device)[:, None]
+                 )[:, None, None, :]
+    s = torch.where(mask, s, -torch.inf)
+    seen = mask.any(-1, keepdim=True)
+    m = torch.where(seen, s.amax(-1, keepdim=True), 0.0)
+    p = torch.exp(s - m)
+    l_sum = p.sum(-1, keepdim=True)
+    out = split_einsum("bhqk,bkhd->bhqd", p, v) / torch.where(seen, l_sum, 1)
+    mean_v = v.mean(dim=1)[:, :, None, :]                    # (B, Hq, 1, D)
+    out = torch.where(seen, out, mean_v).transpose(1, 2).contiguous()
+    if not return_lse:
+        return out
+    lse = torch.where(seen, m + torch.log(l_sum), torch.inf)[..., 0]
+    return out, lse
+
+
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     kv_len: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None,
@@ -272,6 +377,10 @@ def _launch(q, k, v, causal, q_offset, kv_len, scale,
     b, sq, skv, hq, hkv, d, bf16 = _check(q, k, v, kv_len, q_offset)
     out = torch.empty_like(q)
     block_q = launch_plan(b, sq, hq)[0] if bf16 else 64
+    splits = 1 if bf16 else f32_kv_splits(b, sq, skv, hq)
+    # the key splits' normalised rows and logsumexps, merged by the kernel
+    part = None if splits == 1 else torch.empty(
+        splits * b * hq * sq * (d + 1), dtype=torch.float32, device=q.device)
     # torch._C._cuda_getCurrentRawStream (private; PyTorch's generated
     # Triton launchers read the stream through it) gives the handle as an
     # int without building a torch.cuda.Stream
@@ -279,10 +388,15 @@ def _launch(q, k, v, causal, q_offset, kv_len, scale,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         None if kv_len is None else kv_len.data_ptr(),
+        None if part is None else part.data_ptr(),
         b, sq, skv, hq, hkv, d, int(q_offset), int(causal),
-        float(scale if scale is not None else d ** -0.5), block_q,
+        float(scale if scale is not None else d ** -0.5), block_q, splits,
         int(bf16), torch._C._cuda_getCurrentRawStream(q.get_device()))
     flash_attention.launches += 1
+    if bf16:
+        flash_attention.launches_bf16 += 1
+    else:
+        flash_attention.launches_fp32 += 1
     return out
 
 
@@ -437,8 +551,11 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+flash_attention.launches_fp32 = 0
+flash_attention.launches_bf16 = 0
 flash_attention_backward.launches = 0
 
 __all__ = ["flash_attention", "flash_attention_backward",
            "flash_attention_bwd", "flash_attention_ref", "attention_dense_ref",
-           "launch_plan", "tile_rows", "bwd_tiles"]
+           "flash_attention_split", "split_einsum", "launch_plan",
+           "tile_rows", "bwd_tiles", "f32_kv_splits", "f32_tiles"]

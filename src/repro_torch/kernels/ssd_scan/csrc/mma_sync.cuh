@@ -2,7 +2,9 @@
 // inputs: `mma.sync.m16n8k16` bf16 with fp32 accumulation, bf16 operands
 // from padded shared tiles through `ldmatrix` (`.trans` where the natural
 // layout is K-major), fp32 operands split in registers into bf16 hi and lo
-// parts (split2), and tiles loaded by 16-byte `cp.async`.
+// parts (split2), and tiles loaded by 16-byte `cp.async`. Also B2's fp32
+// route: `mma.sync.m16n8k8` tf32 products of fp32 operands split into a
+// tf32 hi and lo part (split_tf32, mma_tf32; layout at mma_tf32).
 //
 // A warp's accumulator acc[nt] is the 16 x 8 tile at rows m0 + {g, g + 8},
 // columns 8 nt + {2t, 2t + 1} (g = lane / 4, t = lane % 4). ldmatrix reads
@@ -114,6 +116,31 @@ __device__ __forceinline__ void split_frag(const float (&acc)[NT][4], int kk,
   split2(acc[2 * kk][2], acc[2 * kk][3], hi[1], lo[1]);
   split2(acc[2 * kk + 1][0], acc[2 * kk + 1][1], hi[2], lo[2]);
   split2(acc[2 * kk + 1][2], acc[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+// D += A B for one warp, tf32 operands, fp32 accumulation. A (16 x 8):
+// a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4); B
+// (8 x 8): b0 (t, g), b1 (t + 4, g); D (16 x 8) as an m16n8k16
+// accumulator: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1). The
+// tensor cores read the top 19 bits of each operand register.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x as hi + lo: hi = x rounded to tf32, to nearest with ties away from zero
+// (what cvt.rna.tf32.f32 gives, written as the bit arithmetic that the
+// plain emulation repeats), lo = x - hi, exact in fp32; the tensor cores
+// read lo truncated to tf32. hi.hi + hi.lo + lo.hi then misses x y by at
+// most about 2^-20 of |x y|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 template <typename T>

@@ -144,13 +144,16 @@ def _run_lockstep(cluster, make_req, specs, fail_beat):
              for r in reqs], finish_beat, reqs)
 
 
-@pytest.mark.parametrize("policy,router,fail_beat", [
-    ("aladdin", "blind", -1),
-    ("jsq", "blind", -1),
-    ("aladdin", "blind", 4),
-    ("aladdin", "sticky", -1),
+@pytest.mark.parametrize("policy,router,fail_beat,chunk", [
+    pytest.param("aladdin", "blind", -1, 0, id="aladdin-blind--1"),
+    pytest.param("jsq", "blind", -1, 0, id="jsq-blind--1"),
+    pytest.param("aladdin", "blind", 4, 0, id="aladdin-blind-4"),
+    pytest.param("aladdin", "sticky", -1, 0, id="aladdin-sticky--1"),
+    # Sarathi-style chunked prefill, 8 tokens an iteration: prompts of 6-40
+    # take up to 5 chunks, each attending to its context pages
+    pytest.param("aladdin", "blind", -1, 8, id="aladdin-blind--1-chunk8"),
 ])
-def test_cluster_lockstep_with_jax(policy, router, fail_beat):
+def test_cluster_lockstep_with_jax(policy, router, fail_beat, chunk):
     kw = dict(n_layers=2, d_model=48, vocab=96)
     ja = dataclasses.replace(jax_reduced(jax_get_arch("llama2-7b"), **kw),
                              param_dtype="float32")
@@ -166,12 +169,13 @@ def test_cluster_lockstep_with_jax(policy, router, fail_beat):
                       [int(x) for x in rng.integers(2, ja.vocab, l_in)],
                       i % 3 if router == "sticky" else -1))
     slo = dict(ttft=0.5, atgt=0.05)
+    engine_kw = dict(ENGINE_KW, prefill_chunk=chunk)
     jc = jax_cluster.ServingCluster(
-        ja, jp, JaxSLO(**slo), engine_cfg=JaxEngineConfig(**ENGINE_KW),
+        ja, jp, JaxSLO(**slo), engine_cfg=JaxEngineConfig(**engine_kw),
         cfg=jax_cluster.ClusterConfig(policy=policy, router=router),
         n_workers=2, time_fn=_Clock())
     tc = ServingCluster(
-        ta, tp, SLO(**slo), engine_cfg=EngineConfig(**ENGINE_KW),
+        ta, tp, SLO(**slo), engine_cfg=EngineConfig(**engine_kw),
         cfg=ClusterConfig(policy=policy, router=router), n_workers=2,
         time_fn=_Clock(), device="cpu")
     # the port seeds placement with H100 figures, the reference with TPU

@@ -6,7 +6,11 @@ and not; non-causal key counts at the edges of its 64-key tiles (1, 63,
 64, 65 and the VLM frontend's 1601) with query groups 1, 4 and 8 and
 Sq != Skv; the mixed-dtype route of ``cross_attention_full`` (a bf16
 layer and an fp32 frontend: q joins k and v in fp32); the chunked
-prefill's ``q_offset`` / ``kv_len`` cases and rows that see no key.
+prefill's ``q_offset`` / ``kv_len`` cases and rows that see no key; the
+fp32 route (split-tf32 tensor-core products) at the shapes of llama2-7b's
+chunked prefill with ``prefill_chunk=256`` and its tails, beside its
+numerics in plain PyTorch (``flash_attention_split``), its logsumexp and
+gradients under autograd, and its launches counted by route.
 
 These tests need an NVIDIA card and nvcc (the kernel is built at first
 use); without a card they skip. On the GPU machine:
@@ -21,7 +25,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_arch, reduced  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_ref)
+    flash_attention, flash_attention_ref, ops)
 from repro_torch.models.attention import cross_attention_full  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 
@@ -150,3 +154,77 @@ def test_flash_kernel_counts_one_launch_a_call(card):
     before = flash_attention.launches
     flash_attention(q, k, v, causal=False)
     assert flash_attention.launches == before + 1
+
+
+# llama2-7b's chunked prefill at prefill_chunk=256 (32/32 heads of 128):
+# (Sq, Skv, q_offset) of the full chunks and of the tails the engine pads to
+# a power-of-two bucket; kv_len = Skv, as the engine passes it
+CHUNK_SHAPES = [(256, 256, 0), (256, 512, 256), (256, 768, 512),
+                (256, 1024, 768), (64, 576, 512), (128, 896, 768),
+                (64, 832, 768)]
+
+
+@pytest.mark.parametrize("sq,skv,q_offset", CHUNK_SHAPES)
+def test_flash_f32_at_the_chunked_path_shapes(card, sq, skv, q_offset):
+    q, k, v = _qkv(card, torch.float32, 1, sq, skv, 32, 32, 128, seed=sq)
+    kl = torch.full((1,), skv, dtype=torch.int32, device=card)
+    _check(q, k, v, causal=True, q_offset=q_offset, kv_len=kl)
+    got = flash_attention(q, k, v, causal=True, q_offset=q_offset, kv_len=kl)
+    want = ops.flash_attention_split(q, k, v, causal=True, q_offset=q_offset,
+                                     kv_len=kl)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("cut", [1, 13, 31, 32, 33])
+def test_flash_f32_kv_len_inside_a_tile(card, cut):
+    """kv_len ends ``cut`` keys into the chunk (32-key tiles)."""
+    q, k, v = _qkv(card, torch.float32, 2, 256, 768, 32, 32, 128, seed=cut)
+    kl = torch.tensor([512 + cut, 768], dtype=torch.int32, device=card)
+    _check(q, k, v, causal=True, q_offset=512, kv_len=kl)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_gqa_d64_rows_with_no_key(card, causal):
+    """D = 64, 8 query heads over 2, a sequence with kv_len 0 (the mean of
+    V) beside one cut mid-tile; a ragged Sq."""
+    q, k, v = _qkv(card, torch.float32, 2, 100, 300, 8, 2, 64, seed=7)
+    kl = torch.tensor([0, 250], dtype=torch.int32, device=card)
+    _check(q, k, v, causal=causal, q_offset=200 if causal else 0, kv_len=kl)
+
+
+@pytest.mark.parametrize("sq,skv,q_offset", [(256, 768, 512), (100, 300, 0)])
+def test_flash_f32_lse_and_gradients_under_autograd(card, sq, skv, q_offset):
+    """The forward kernel's logsumexp (what the backward reads) against the
+    plain version's, and the gradients through the autograd Function
+    against autograd of the plain version (fp32 backward gate: 1e-4 of each
+    gradient's largest value)."""
+    q, k, v = _qkv(card, torch.float32, 1, sq, skv, 8, 8, 128, seed=3)
+    lse = torch.empty((1, 8, sq), dtype=torch.float32, device=card)
+    out = ops._launch(q, k, v, True, q_offset, None, None, lse)
+    want, want_lse = flash_attention_ref(q, k, v, causal=True,
+                                         q_offset=q_offset, return_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, **TOL[torch.float32])
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    dout = torch.randn_like(q)
+    got = torch.autograd.grad(
+        flash_attention(*xs, causal=True, q_offset=q_offset), xs, dout)
+    ref = torch.autograd.grad(
+        flash_attention_ref(*xs, causal=True, q_offset=q_offset), xs, dout)
+    for g, w in zip(got, ref):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * scale)
+
+
+def test_flash_counts_launches_by_route(card):
+    """``launches`` counts every launch, ``launches_fp32`` and
+    ``launches_bf16`` each route's."""
+    before = (flash_attention.launches, flash_attention.launches_fp32,
+              flash_attention.launches_bf16)
+    for dtype in (torch.float32, torch.bfloat16, torch.float32):
+        flash_attention(*_qkv(card, dtype, 1, 64, 96, 4, 4, 64), causal=True,
+                        q_offset=32)
+    assert (flash_attention.launches, flash_attention.launches_fp32,
+            flash_attention.launches_bf16) == (before[0] + 3, before[1] + 2,
+                                               before[2] + 1)

@@ -270,3 +270,42 @@ def test_engines_on_trees_sharing_embed_read_their_own_layers():
     l1 = e1._decode(tokens, [0])
     l2 = e2._decode(tokens, [0])
     assert not torch.equal(l1, l2)
+
+
+@pytest.mark.parametrize("chunk", [8, 16])
+def test_chunk_plan_is_what_the_engine_launches(monkeypatch, chunk):
+    """``chip_smoke.chunk_plan``, from which the chunked serving phase
+    counts B2's fp32 launches, lists the (Sq, Skv, q_offset) of every
+    attention call the engine's chunked prefill makes, layer by layer,
+    each with kv_len = Skv; a prompt of at most ``chunk`` tokens is
+    prefilled in one shot and makes none."""
+    import sys
+    from pathlib import Path
+
+    import repro_torch.serving.engine as engine_mod
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    calls = []
+    attend = engine_mod.flash_attention
+
+    def recorded(q, k, v, *, causal, q_offset, kv_len):
+        calls.append((q.shape[1], k.shape[1], q_offset, int(kv_len[0])))
+        assert causal and q.dtype == torch.float32
+        return attend(q, k, v, causal=causal, q_offset=q_offset,
+                      kv_len=kv_len)
+    monkeypatch.setattr(engine_mod, "flash_attention", recorded)
+    arch, _, _, eng = _setup(prefill_chunk=chunk)
+    rng = np.random.default_rng(4)
+    want = []
+    for n in (5, chunk, chunk + 1, 2 * chunk, 3 * chunk + 3, 57):
+        r = _req([int(x) for x in rng.integers(2, arch.vocab, n)], 1)
+        eng.submit(r)
+        eng.step()                          # this prompt's prefill
+        assert r.state == ReqState.DECODING
+        eng.step()                          # its one decode step
+        assert r.state == ReqState.FINISHED
+        want += [s for s in chip_smoke.chunk_plan(n, chunk)
+                 for _ in range(arch.n_layers)]
+    assert [c[:3] for c in calls] == want
+    assert all(c[3] == c[1] for c in calls)
