@@ -19,6 +19,11 @@ Before any trace exists the placement model is the analytic seed of an
 H100 SXM (the reference seeds it with TPU v5e figures); the live traces
 then refit it. The control-plane
 code and its clock reads are the reference's, line for line.
+
+Heartbeats, placement, re-balance and refits are spans of
+``serving/spans.py``'s ``RECORDER``, and each request's submission and
+placement are instants of it; the recorder reads its own clock, apart from
+``time_fn``.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.core.slo import SLO
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serving.engine import EngineConfig, PagedEngine
 from repro_torch.serving.length_predictor import LengthPredictor
+from repro_torch.serving.spans import RECORDER
 
 
 @dataclasses.dataclass
@@ -165,6 +171,7 @@ class ServingCluster:
     def submit(self, req: Request) -> None:
         req.l_pred = self.predictor.predict(req.l_in)
         self.queued.append(req)
+        RECORDER.instant("request.submit", req.id)
 
     def _try_home(self, r: Request):
         """Sticky session affinity: the home worker takes the turn only if
@@ -199,17 +206,23 @@ class ServingCluster:
                 still.append(r)
             else:
                 r.state = ReqState.PLACED
+                RECORDER.instant("request.placed", r.id)
                 if self.cfg.router == "sticky" and r.session_id >= 0:
                     self.session_home[r.session_id] = st.id
         self.queued = still
 
+    @RECORDER.traced("cluster.heartbeat")
     def heartbeat(self) -> List[Request]:
         """One control-plane cycle: place, re-balance, run engine iterations,
         refit models, straggler check. Returns newly finished requests."""
+        sp = RECORDER.begin("cluster.place")
         self._place_all()
+        RECORDER.end(sp)
         if self.cfg.enable_rebalance and self.cfg.policy == "aladdin":
+            sp = RECORDER.begin("cluster.rebalance")
             rebalance([w.state for w in self.workers.values()], self.tracker)
             self.tracker.decay()
+            RECORDER.end(sp)
         # hand placed requests to engines
         for w in self.workers.values():
             for r in list(w.state.new_batch):
@@ -234,7 +247,9 @@ class ServingCluster:
                         r, self.predictor.repredict(r.l_in, r.l_out))
                     w.state.mark_dirty()
             # refit perf models from live traces (workflow step 3)
+            sp = RECORDER.begin("cluster.refit")
             self.perf.update_from_traces(w.engine.traces)
+            RECORDER.end(sp)
         self._detect_stragglers()
         # retire drained+empty workers
         for wid, w in list(self.workers.items()):

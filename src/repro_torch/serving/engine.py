@@ -21,7 +21,11 @@ through their plain versions. CUDA launches are asynchronous, so every
 clock read that feeds the TraceBuffer follows a host read of the
 iteration's result (``.item()`` / ``.cpu()``), which waits for the device:
 iteration wall-times, not launch latencies, fit the paper's Eqs. 1-3. The
-clock is read at the same places and as often as in the reference."""
+clock is read at the same places and as often as in the reference.
+
+Each step is a span of ``serving/spans.py``'s ``RECORDER``, as are its
+prefills and a decode step's host launch and device wait; the recorder
+reads its own clock, apart from ``time_fn``."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,6 +45,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import gated_mlp, rms_norm, rope, \
     sinusoidal_pos
 from repro_torch.models.model import LM
+from repro_torch.serving.spans import RECORDER
 
 
 @dataclasses.dataclass
@@ -245,6 +250,7 @@ class PagedEngine:
         self.slots[slot] = None
 
     # ---- iteration-level scheduling -----------------------------------------
+    @RECORDER.traced("engine.step")
     def step(self, now: Optional[float] = None) -> List[Request]:
         """Run ONE iteration (a prefill batch or a decode batch). Returns the
         requests that finished."""
@@ -256,7 +262,9 @@ class PagedEngine:
                 r = self.waiting.pop(0)
                 batch.append(r)
                 total_in += r.l_in
+                sp = RECORDER.begin("engine.prefill", r.id)
                 self._run_prefill(r)       # ends in a host read: synced
+                RECORDER.end(sp)
             t1 = self.time_fn()
             self.traces.record_prefill(total_in, t1 - t0)
             for r in batch:
@@ -279,8 +287,12 @@ class PagedEngine:
         tokens = np.zeros((self.cfg.max_batch,), np.int64)
         for i in active_slots:
             tokens[i] = self.slots[i].tokens[-1]
+        sp = RECORDER.begin("engine.decode.launch")
         logits = self._decode(tokens, active_slots)
+        RECORDER.end(sp)
+        sp = RECORDER.begin("engine.decode.wait")
         nxt = logits.argmax(dim=-1).cpu().numpy()   # waits for the device
+        RECORDER.end(sp)
         t1 = self.time_fn()
         total_ctx = int(self.lengths[active_slots].sum()) + len(active_slots)
         self.traces.record_decode(len(active_slots), total_ctx, t1 - t0)
