@@ -6,6 +6,7 @@ nothing falls back. On a DTensor it runs on each rank's rows through
 ``local_map``: rows are independent, so the local call is exact."""
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -65,9 +66,21 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+@functools.lru_cache(maxsize=None)
+def _const(v: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A 0-d constant, made once a (value, dtype, device): a copy from the
+    host on every call would keep a CUDA graph from capturing the call.
+    Made outside inference mode, so that autograd may save it later."""
+    with torch.inference_mode(False):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.gelu (tanh form) op for op, constants in x's dtype."""
+    """jax.nn.gelu (tanh form) op for op, constants in x's dtype (kept
+    for a plain tensor; a fake tensor or a DTensor makes its own)."""
     def c(v):
+        if type(x) is torch.Tensor:
+            return _const(v, x.dtype, x.device)
         return torch.tensor(v, dtype=x.dtype, device=x.device)
     inner = x + c(0.044715) * (x * x * x)
     return x * (c(0.5) * (1.0 + torch.tanh(c(math.sqrt(2 / math.pi))

@@ -23,6 +23,13 @@ iteration's result (``.item()`` / ``.cpu()``), which waits for the device:
 iteration wall-times, not launch latencies, fit the paper's Eqs. 1-3. The
 clock is read at the same places and as often as in the reference.
 
+The decode step is one function of static shapes (``_decode_step``): every
+slot is computed and the active slots' KV written under a mask, from
+persistent input tensors that each step fills from the host's state. On
+CUDA an engine captures it in one CUDA graph when it is built and replays
+that graph each decode step, so the host enqueues one launch where it
+enqueued the step's ~60 kernels a layer; on the CPU it runs eagerly.
+
 Each step is a span of ``serving/spans.py``'s ``RECORDER``, as are its
 prefills and a decode step's host launch and device wait; the recorder
 reads its own clock, apart from ``time_fn``."""
@@ -42,10 +49,16 @@ from repro_torch.core.request import ReqState, Request
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.decode_attention import paged_decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models.common import gated_mlp, rms_norm, rope, \
     sinusoidal_pos
 from repro_torch.models.model import LM
 from repro_torch.serving.spans import RECORDER
+
+# the kernels a decode step launches: a CUDA graph counts their launches
+# once, at capture, so each replay adds the capture's counts to theirs
+_DECODE_KERNELS = (paged_decode_attention, rmsnorm)
+_WARMUP_STEPS = 3         # eager steps on a side stream before the capture
 
 
 @dataclasses.dataclass
@@ -73,6 +86,9 @@ def decode_weights(params, head: torch.Tensor) -> dict:
 
 class PagedEngine:
     """One worker's execution engine."""
+
+    decode_captures = 0     # CUDA graphs of the decode step captured
+    decode_replays = 0      # decode steps run by replaying one
 
     def __init__(self, arch: ArchConfig, params, cfg: EngineConfig,
                  time_fn: Callable[[], float] = time.perf_counter,
@@ -109,6 +125,10 @@ class PagedEngine:
         self.slots: List[Optional[Request]] = [None] * cfg.max_batch
         self.waiting: List[Request] = []
         self.kv_bytes_per_token = 2 * L * arch.n_kv_heads * hd * 4
+        self._decode_inputs()
+        self._graph = None
+        if self.device.type == "cuda":
+            self._capture()
 
     # ---- admission / state --------------------------------------------------
     def can_admit(self, n_tokens_total: int) -> bool:
@@ -130,23 +150,64 @@ class PagedEngine:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
     # ---- model math ---------------------------------------------------------
-    def _decode(self, tokens: np.ndarray, active_slots: List[int]):
-        """One decode iteration for every slot; the KV of the active slots
-        is written in place. Returns logits (max_batch, V) in fp32."""
+    def _decode_inputs(self) -> None:
+        """The decode step's inputs (``_inputs``): ``tokens`` (B,) int64,
+        ``block_tables`` (B, max_pages) int32, ``lengths`` (B,) int32 and
+        ``active`` (B,) bool, B = max_batch, and the host tensors a step
+        fills them from (``_staged``). On CUDA the inputs are on the card,
+        where the graph reads them, the staging is pinned and ``_loaded``
+        marks the end of a step's copies; on the CPU the two are one."""
+        b = self.cfg.max_batch
+        cuda = self.device.type == "cuda"
+        self._staged = {
+            name: torch.zeros(shape, dtype=dtype, pin_memory=cuda)
+            for name, shape, dtype in (
+                ("tokens", (b,), torch.int64),
+                ("block_tables", (b, self.cfg.max_pages_per_seq),
+                 torch.int32),
+                ("lengths", (b,), torch.int32),
+                ("active", (b,), torch.bool))}
+        self._inputs = {k: t.to(self.device) for k, t in self._staged.items()}
+        self._loaded = torch.cuda.Event() if cuda else None
+
+    def _load_inputs(self, tokens: np.ndarray,
+                     active_slots: List[int]) -> None:
+        """Fill the decode step's inputs from the host's state: on CUDA
+        into the pinned staging, then one asynchronous copy an input."""
+        if self._loaded is not None:
+            self._loaded.synchronize()   # the last step's copies are done
+        st = self._staged
+        st["tokens"].numpy()[:] = tokens
+        st["block_tables"].numpy()[:] = self.block_tables
+        st["lengths"].numpy()[:] = self.lengths
+        active = st["active"].numpy()
+        active[:] = False
+        active[active_slots] = True
+        if self._loaded is not None:
+            for k, t in self._inputs.items():
+                t.copy_(st[k], non_blocking=True)
+            self._loaded.record()
+
+    def _decode_step(self, tokens, block_tables, lengths, active):
+        """One decode iteration for every slot, on the step's input tensors
+        (``_decode_inputs``). The KV of the active slots is written in
+        place; an inactive slot's write puts back what it reads (its
+        block-table row is the null page), as the reference's masked write
+        does. Reads nothing from the host, so a CUDA graph can hold it.
+        Returns logits (max_batch, V) in fp32."""
         a = self.arch
         hd = a.resolved_head_dim
         seg = self.w32["seg0"]
-        bt = self._tensor(self.block_tables)
-        lengths = self._tensor(self.lengths)
-        act = self._tensor(active_slots, torch.long)
-        x = self.params["embed"][self._tensor(tokens)].float()
+        x = self.params["embed"][tokens].float()
         if a.tie_embeddings:
             x = x * math.sqrt(a.d_model)
         if a.pos_emb == PosEmb.SINUSOIDAL:
             x = x + sinusoidal_pos(lengths, a.d_model)
-        pos = lengths[act].long()
-        page_ids = bt[act, pos // self.cfg.page_size].long()
-        offs = (pos % self.cfg.page_size).long()
+        pos = lengths.long()
+        page_ids = block_tables.gather(
+            1, (pos // self.cfg.page_size)[:, None])[:, 0].long()
+        offs = pos % self.cfg.page_size
+        msk = active[:, None, None]
         seq_lens = lengths + 1
         rope_pos = lengths[:, None].float()     # once, not once a layer
         for i in range(a.n_layers):
@@ -162,15 +223,57 @@ class PagedEngine:
             if a.pos_emb == PosEmb.ROPE:
                 q = rope(q[:, None], rope_pos, a.rope_theta)[:, 0]
                 k = rope(k[:, None], rope_pos, a.rope_theta)[:, 0]
-            self.kv_k[i, page_ids, offs] = k[act]
-            self.kv_v[i, page_ids, offs] = v[act]
-            att = paged_decode_attention(q.contiguous(), self.kv_k[i],
-                                         self.kv_v[i], bt, seq_lens)
+            kv_k, kv_v = self.kv_k[i], self.kv_v[i]
+            kv_k[page_ids, offs] = torch.where(msk, k, kv_k[page_ids, offs])
+            kv_v[page_ids, offs] = torch.where(msk, v, kv_v[page_ids, offs])
+            att = paged_decode_attention(q.contiguous(), kv_k, kv_v,
+                                         block_tables, seq_lens)
             x = x + att.reshape(x.shape[0], -1) @ p["wo"]
             h = rms_norm(x, p["ln2"], a.norm_eps)
             x = x + gated_mlp(h, p["wg"], p["wu"], p["wd"], a.act)
         x = rms_norm(x, self.params["final_ln"], a.norm_eps)
         return x @ self.w32["head"]
+
+    def _capture(self) -> None:
+        """Capture ``_decode_step`` on this engine's inputs in a CUDA graph
+        (one an engine: the graph writes this engine's pools, and reads the
+        weights and ``w32`` in place). Every slot is inactive, so no KV
+        changes. Warm-up steps on a side stream first make what a first
+        call makes (cuBLAS's handles and workspaces, the kernel library's
+        settings) outside the capture."""
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(_WARMUP_STEPS):
+                self._decode_step(**self._inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = [kern.launches for kern in _DECODE_KERNELS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._logits = self._decode_step(**self._inputs)
+        # the capture launched nothing; each replay launches what it counted
+        self._graph_launches = []
+        for kern, n0 in zip(_DECODE_KERNELS, before):
+            self._graph_launches.append((kern, kern.launches - n0))
+            kern.launches = n0
+        self._graph = graph
+        self.decode_captures += 1
+        RECORDER.instant("engine.decode.capture")
+
+    def _decode(self, tokens: np.ndarray, active_slots: List[int]):
+        """One decode iteration for every slot; the KV of the active slots
+        is written in place. Returns logits (max_batch, V) in fp32: on CUDA
+        the graph's output buffer, which the next step overwrites."""
+        self._load_inputs(tokens, active_slots)
+        if self._graph is None:
+            return self._decode_step(**self._inputs)
+        self._graph.replay()
+        for kern, n in self._graph_launches:
+            kern.launches += n
+        self.decode_replays += 1
+        RECORDER.instant("engine.decode.replay")
+        return self._logits
 
     def _chunk(self, chunk_toks: List[int], k_ctx, v_ctx, ctx_len: int,
                logit_pos: int):
