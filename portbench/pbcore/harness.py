@@ -72,10 +72,12 @@ def _counters():
     from repro_torch.kernels.decode_attention import paged_decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_scan import ssd_scan
     return {"paged_decode": lambda: paged_decode_attention.launches,
             "flash_f32": lambda: flash_attention.launches_fp32,
             "flash_bf16": lambda: flash_attention.launches_bf16,
-            "rmsnorm": lambda: rmsnorm.launches}
+            "rmsnorm": lambda: rmsnorm.launches,
+            "ssd_scan": lambda: ssd_scan.launches}
 
 
 def build_cluster(cell: Cell, arch, weights, device):

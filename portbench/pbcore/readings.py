@@ -112,8 +112,12 @@ def roofline(o, stem: str, count_name: str, bounds: List[float],
     return 100.0 * sum(bounds) * (seen / launches) / busy
 
 
-def paged_decode_roofline(o) -> Optional[float]:
-    cfg, L = o.cfg, o.cfg["num_hidden_layers"]
+def paged_decode_bounds(o) -> List[float]:
+    """B1's least time for each launch in the traced span: one a layer
+    that attends, each decode iteration."""
+    cfg, L = o.cfg, work.attn_layers(o.cfg)
+    if not L:
+        return []
     max_pages = int(o.cell.workload["engine"]["max_pages_per_seq"])
     bounds = []
     for s in o.span_steps():
@@ -121,12 +125,21 @@ def paged_decode_roofline(o) -> Optional[float]:
             fl, by = work.paged_decode_work(cfg, s.tokens, s.context,
                                             max_pages)
             bounds += [work.bound_s(fl, by)] * L
+    return bounds
+
+
+def paged_decode_roofline(o) -> Optional[float]:
+    bounds = paged_decode_bounds(o)
     return roofline(o, "paged_decode_kernel", "paged_decode_kernel_split",
                     bounds, len(bounds), "paged_decode")
 
 
-def flash_f32_roofline(o) -> Optional[float]:
-    cfg, L = o.cfg, o.cfg["num_hidden_layers"]
+def flash_f32_bounds(o) -> List[float]:
+    """B2 fp32's least time for each launch in the traced span: one a
+    layer that attends, each chunk of a chunked prefill."""
+    cfg, L = o.cfg, work.attn_layers(o.cfg)
+    if not L:
+        return []
     chunk = int(o.cell.workload["engine"].get("prefill_chunk", 0))
     bounds = []
     for s in o.span_steps():
@@ -136,6 +149,11 @@ def flash_f32_roofline(o) -> Optional[float]:
             for rows, done in work.chunk_plan(n, chunk):
                 fl, by = work.flash_f32_work(cfg, rows, done)
                 bounds += [work.bound_s(fl, by)] * L
+    return bounds
+
+
+def flash_f32_roofline(o) -> Optional[float]:
+    bounds = flash_f32_bounds(o)
     return roofline(o, "flash_fwd_f32", "flash_fwd_f32_kernel", bounds,
                     len(bounds), "flash_f32")
 

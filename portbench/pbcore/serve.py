@@ -15,6 +15,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from pbcore.spec import layout
+
 # configuration file key -> the port's ArchConfig field
 ARCH_KEYS = {"num_hidden_layers": "n_layers", "hidden_size": "d_model",
              "num_attention_heads": "n_heads",
@@ -29,7 +31,11 @@ DTYPES = {"bfloat16": "bfloat16", "float32": "float32"}
 def port_arch(cfg: Dict):
     """The port's ArchConfig for a configuration file, every size taken
     from the file. Raises where the file's scalars are not what the port
-    runs (the file would not describe the run)."""
+    runs (the file would not describe the run). A configuration that
+    names a layout gets its layout module's ``port_arch``."""
+    lay = layout(cfg)
+    if lay is not None:
+        return lay.port_arch(cfg)
     from repro_torch.configs import get_arch
     kw = {field: cfg[key] for key, field in ARCH_KEYS.items() if key in cfg}
     kw["param_dtype"] = DTYPES[cfg["torch_dtype"]]
@@ -53,7 +59,12 @@ def port_arch(cfg: Dict):
 
 
 def leaf_shapes(cfg: Dict) -> Dict:
-    """The weights' layout, as the port's dense ``LM`` takes them."""
+    """The weights' layout, nested ``{name: (shape, kind)}`` or ``(shape,
+    kind, dtype)`` (see ``make_weights``), as the port's dense ``LM`` takes
+    them, or as the configuration's layout module gives it."""
+    lay = layout(cfg)
+    if lay is not None:
+        return lay.leaf_shapes(cfg)
     L, d = cfg["num_hidden_layers"], cfg["hidden_size"]
     hq, hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
     hd = cfg.get("head_dim") or d // hq
@@ -69,28 +80,45 @@ def leaf_shapes(cfg: Dict) -> Dict:
 
 
 def make_weights(cfg: Dict, seed: int, device) -> Dict:
-    """Random weights from ``seed``, on the device, in the configuration's
-    dtype, one call a stacked leaf in sorted order: matrices N(0,
-    1/fan_in), norm gains 1 + N(0, 0.1^2) (not ones, so that a norm that
-    skipped its gain would show), the embedding N(0, 1/d^2). The tied head
-    reads the embedding back: at the usual 0.02 a token's own row (scaled
-    by sqrt(d) on the way in) would stand some 10 sigma above every other
-    logit, and the model would repeat its last token by a margin no
-    rounding could flip; at 1/d it leads by well under one."""
+    """Random weights from ``seed``, on the device, one call a stacked
+    leaf in sorted order, each in its leaf's dtype (the configuration's
+    where the leaf names none). A leaf's kind says how it is drawn:
+
+    - a number, its fan-in: N(0, 1/fan_in);
+    - ``"norm"``, any gain (a norm's weight, Mamba's D): 1 + N(0, 0.1^2),
+      not ones, so that a skipped gain shows;
+    - ``"embed"``: N(0, 1/d^2). The tied head reads the embedding back: at
+      the usual 0.02 a token's own row (scaled by sqrt(d) on the way in)
+      would stand some 10 sigma above every other logit, and the model
+      would repeat its last token by a margin no rounding could flip; at
+      1/d it leads by well under one;
+    - ``("normal", sigma)``: N(0, sigma^2), for biases, not zeros, so that
+      a skipped bias shows;
+    - ``("log_uniform", low, high)``: log U[low, high] (Mamba's A_log)."""
     import torch
-    dtype = getattr(torch, cfg["torch_dtype"])
     gen = torch.Generator(device=device).manual_seed(int(seed))
     d = cfg["hidden_size"]
 
-    def randn(shape):
-        return torch.randn(shape, generator=gen, device=device, dtype=dtype)
+    def make(shape, kind, dtype=cfg["torch_dtype"]):
+        dtype = getattr(torch, DTYPES[dtype])
 
-    def make(shape, kind):
+        def randn():
+            return torch.randn(shape, generator=gen, device=device,
+                               dtype=dtype)
         if kind == "norm":
-            return randn(shape).mul_(0.1).add_(1.0)
-        if kind != "embed":
-            return randn(shape).mul_(1.0 / math.sqrt(kind))
-        return randn(shape).mul_(1.0 / d)
+            return randn().mul_(0.1).add_(1.0)
+        if kind == "embed":
+            return randn().mul_(1.0 / d)
+        if isinstance(kind, (int, float)):
+            return randn().mul_(1.0 / math.sqrt(kind))
+        draw, *args = kind
+        if draw == "normal":
+            return randn().mul_(args[0])
+        if draw == "log_uniform":
+            low, high = args
+            return torch.rand(shape, generator=gen, device=device,
+                              dtype=dtype).mul_(high - low).add_(low).log_()
+        raise ValueError(f"unknown kind of leaf {kind!r}")
 
     def walk(node):
         return {k: walk(node[k]) if isinstance(node[k], dict)
@@ -99,9 +127,11 @@ def make_weights(cfg: Dict, seed: int, device) -> Dict:
 
 
 def check_layout(arch, weights: Dict) -> None:
-    """The port's own template must declare the shapes made here."""
+    """The port's own model must declare the leaves, shapes and dtypes
+    made here: those ``LM.init`` gives (on the meta device, so nothing is
+    allocated)."""
     from repro_torch.models.model import LM
-    tmpl = LM(arch, device="cpu").param_template()
+    tmpl = LM(arch, device="meta").init(None)
 
     def walk(t, w, path):
         if set(t) != set(w):
@@ -110,9 +140,11 @@ def check_layout(arch, weights: Dict) -> None:
         for k in t:
             if isinstance(t[k], dict):
                 walk(t[k], w[k], f"{path}/{k}")
-            elif tuple(t[k][0]) != tuple(w[k].shape):
-                raise ValueError(f"layout {path}/{k}: port {t[k][0]}, "
-                                 f"harness {tuple(w[k].shape)}")
+            elif (t[k].shape, t[k].dtype) != (w[k].shape, w[k].dtype):
+                raise ValueError(f"layout {path}/{k}: port "
+                                 f"{tuple(t[k].shape)} {t[k].dtype}, "
+                                 f"harness {tuple(w[k].shape)} "
+                                 f"{w[k].dtype}")
     walk(tmpl, weights, "")
 
 

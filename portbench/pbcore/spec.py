@@ -3,7 +3,9 @@
 ``BENCHMARK.json`` names the cells, configurations and metrics; each piece
 lives in a file of its own under ``portbench/``, found by its name:
 
-- ``configs/<config>.json``: the sizes as they are run;
+- ``configs/<config>.json``: the sizes as they are run; its ``layout``
+  key, where it has one, names ``configs/<layout>.py``, the module that
+  says how the port lays the configuration out (see ``layout``);
 - ``workloads/<cell>.json``: the deployment of one cell (engine, cluster,
   limits, drain, traced span, the check's sample and limit);
 - ``traffic/<traffic>.json``: a traffic mix's parameters, read by the
@@ -32,13 +34,34 @@ def _load_module(path: Path, name: str):
     return mod
 
 
+class Config(dict):
+    """A configuration file's contents, and the module its ``layout`` key
+    names (None where the file has no such key)."""
+    layout_module = None
+
+
+def layout(cfg: dict):
+    """The layout module of a configuration, or None for the dense layout
+    that ``serve`` and ``work`` define themselves. A layout module defines
+    ``port_arch(cfg)``, ``leaf_shapes(cfg)``, ``attn_layers(cfg)`` and
+    ``token_flops(cfg)`` (see the README)."""
+    if "layout" not in cfg:
+        return None
+    mod = getattr(cfg, "layout_module", None)
+    if mod is None:
+        raise LookupError(f"the configuration names the layout "
+                          f"{cfg['layout']!r}: read it with Bench.config, "
+                          f"which loads configs/{cfg['layout']}.py")
+    return mod
+
+
 @dataclasses.dataclass
 class Cell:
     name: str
     config_name: str
     traffic_name: str
     chips: int
-    config: dict          # configs/<config>.json
+    config: Config        # configs/<config>.json
     workload: dict        # workloads/<cell>.json
     traffic: dict         # traffic/<traffic>.json
     end_to_end: List[dict]
@@ -72,6 +95,13 @@ class Bench:
             self._modules[key] = _load_module(path, safe)
         return self._modules[key]
 
+    def config(self, name: str) -> Config:
+        """``configs/<name>.json``, with the layout module it names."""
+        cfg = Config(self.data("configs", name))
+        if "layout" in cfg:
+            cfg.layout_module = self.module("configs", cfg["layout"])
+        return cfg
+
     def reader(self, metric: str):
         return self.module("metrics", metric)
 
@@ -103,7 +133,7 @@ class Bench:
                      else m["moves"] in reported)]
         return Cell(name=name, config_name=entry["config"],
                     traffic_name=entry["traffic"], chips=entry["chips"],
-                    config=self.data("configs", entry["config"]),
+                    config=self.config(entry["config"]),
                     workload=workload,
                     traffic=self.data("traffic", entry["traffic"]),
                     end_to_end=e2e, per_layer=layer)

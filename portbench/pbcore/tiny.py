@@ -1,7 +1,8 @@
 """Throwaway cells for the CPU tests, made of data files only: a reduced
 configuration, a traffic mix and a workload, written into a directory
 that a ``Bench`` searches before ``portbench/`` itself, with a copy of
-``BENCHMARK.json`` that names the cell."""
+``BENCHMARK.json`` that names the cell; and configurations that bring
+their own layout module."""
 from __future__ import annotations
 
 import copy
@@ -80,3 +81,15 @@ def bench(root: Path, name: str, cfg: Dict, wl: Dict,
         if "workloads" in m:
             m["workloads"].append(name)
     return Bench(b, [root, HERE])
+
+
+def layout_config(root: Path, name: str, cfg: Dict, source: str) -> Bench:
+    """Write ``configs/<name>.json`` and the layout module it names
+    (``cfg["layout"]``, its text ``source``) under ``root``, and return a
+    Bench that finds them first: ``Bench.config(name)`` reads them."""
+    root = Path(root)
+    (root / "configs").mkdir(parents=True, exist_ok=True)
+    (root / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+    (root / "configs" / f"{cfg['layout']}.py").write_text(source)
+    return Bench(json.loads((ROOT / "BENCHMARK.json").read_text()),
+                 [root, HERE])
